@@ -1,0 +1,23 @@
+"""U-Net model family (PyTorch), its BN folding and the flax weight bridge."""
+
+from satellite_computervision_tpu_torch.models.blocks import (
+    ConvBlock,
+    ConvBNAct,
+    DecoderBlock,
+    EncoderBlock,
+)
+from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
+from satellite_computervision_tpu_torch.models.fold import fold_unet
+from satellite_computervision_tpu_torch.models.unet import UNet, unet_parking, unet_solar
+
+__all__ = [
+    "ConvBNAct",
+    "ConvBlock",
+    "EncoderBlock",
+    "DecoderBlock",
+    "UNet",
+    "unet_solar",
+    "unet_parking",
+    "fold_unet",
+    "flax_to_torch",
+]

@@ -1,0 +1,113 @@
+"""Shared convolutional building blocks (PyTorch, NCHW inside).
+
+Port of ``satellite_computervision_tpu/models/blocks.py`` (ConvBNAct,
+ConvBlock, EncoderBlock, DecoderBlock). Sub-module names follow the flax
+parameter tree (``Conv_0``, ``BatchNorm_0``, ``ConvTranspose_0``,
+``affine_0_scale`` ...) so a ``state_dict`` key reads like the JAX path it
+came from (models/bridge.py maps one onto the other).
+
+- BatchNorm uses the Keras epsilon 1e-3, as the JAX blocks do.
+- ``fold_bn=True`` is the serving mode: the BatchNorms are gone (their
+  affine lives in the conv weights, models/fold.py), and the decoder's
+  post-concat BN is a per-channel affine ``affine_0_scale/bias``.
+- Blocks take and return NCHW tensors; the UNet converts at its edges.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-3  # Keras default, as blocks.py uses
+
+
+def _bn(ch: int) -> nn.BatchNorm2d:
+    # Keras momentum 0.99 is torch momentum 0.01 (serving never updates it)
+    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=0.01)
+
+
+class ConvBNAct(nn.Module):
+    """Conv2D(3x3, SAME) -> BatchNorm -> ReLU."""
+
+    def __init__(self, in_ch: int, features: int, fold_bn: bool = False):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_ch, features, 3, padding="same")
+        self.BatchNorm_0 = None if fold_bn else _bn(features)
+
+    def forward(self, x):
+        x = self.Conv_0(x)
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x)
+        return F.relu(x)
+
+
+class ConvBlock(nn.Module):
+    """n x (conv -> BN -> relu)."""
+
+    def __init__(self, in_ch: int, features: int, n_convs: int = 2,
+                 fold_bn: bool = False):
+        super().__init__()
+        self.n_convs = n_convs
+        for i in range(n_convs):
+            self.add_module(
+                f"ConvBNAct_{i}",
+                ConvBNAct(in_ch if i == 0 else features, features, fold_bn=fold_bn),
+            )
+
+    def forward(self, x):
+        for i in range(self.n_convs):
+            x = getattr(self, f"ConvBNAct_{i}")(x)
+        return x
+
+
+class EncoderBlock(nn.Module):
+    """conv_block -> max_pool(factor); returns (pooled, skip)."""
+
+    def __init__(self, in_ch: int, features: int, pool: int = 2,
+                 n_convs: int = 2, fold_bn: bool = False):
+        super().__init__()
+        self.pool = pool
+        self.ConvBlock_0 = ConvBlock(in_ch, features, n_convs, fold_bn)
+
+    def forward(self, x):
+        skip = self.ConvBlock_0(x)
+        return F.max_pool2d(skip, self.pool, self.pool), skip
+
+
+class DecoderBlock(nn.Module):
+    """transpose_conv -> concat [skip, up] -> BN -> relu -> 2x(conv->BN->relu).
+
+    With ``fold_bn`` the post-concat BN (it normalizes skip channels too,
+    so it has no single preceding conv to fold into) is the per-channel
+    affine ``affine_0_scale``/``affine_0_bias``."""
+
+    def __init__(self, in_ch: int, skip_ch: int, features: int, up: int = 2,
+                 fold_bn: bool = False):
+        super().__init__()
+        cat = skip_ch + features
+        self.fold_bn = fold_bn
+        self.ConvTranspose_0 = nn.ConvTranspose2d(in_ch, features, up, stride=up)
+        if fold_bn:
+            self.affine_0_scale = nn.Parameter(torch.ones(cat))
+            self.affine_0_bias = nn.Parameter(torch.zeros(cat))
+        else:
+            self.BatchNorm_0 = _bn(cat)
+            self.BatchNorm_1 = _bn(features)
+            self.BatchNorm_2 = _bn(features)
+        self.Conv_0 = nn.Conv2d(cat, features, 3, padding="same")
+        self.Conv_1 = nn.Conv2d(features, features, 3, padding="same")
+
+    def forward(self, x, skip):
+        x = torch.cat([skip, self.ConvTranspose_0(x)], dim=1)
+        if self.fold_bn:
+            x = x * self.affine_0_scale[:, None, None] + self.affine_0_bias[:, None, None]
+        else:
+            x = self.BatchNorm_0(x)
+        x = F.relu(x)
+        for i in range(2):
+            x = getattr(self, f"Conv_{i}")(x)
+            if not self.fold_bn:
+                x = getattr(self, f"BatchNorm_{i + 1}")(x)
+            x = F.relu(x)
+        return x

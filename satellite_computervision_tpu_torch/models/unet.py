@@ -1,0 +1,138 @@
+"""Parametric U-Net (multiclass / binary / autoencoder heads).
+
+Port of ``satellite_computervision_tpu/models/unet.py``. ``head`` picks the
+output dict:
+
+- ``"softmax"``  -> {"probs", "classes"(argmax), "logits"}
+- ``"sigmoid"``  -> {"probs", "classes"(> threshold), "logits"}
+- ``"linear"``   -> {"continuous"}
+
+The public forward keeps the JAX layout: NHWC in, NHWC out. Inside, the
+trunk runs NCHW; an NHWC input permuted to NCHW has channels-last strides,
+which is what cuDNN prefers on the card. The input is cast to the
+parameters' dtype (bf16 when serving), and the logits are cast to float32
+before the head, as the JAX model does.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from satellite_computervision_tpu_torch.models.blocks import (
+    ConvBlock,
+    DecoderBlock,
+    EncoderBlock,
+    _bn,
+)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, 4C) with the JAX package's channel
+    order ``(dy*2 + dx)*C + c`` (``F.pixel_unshuffle`` orders channels
+    ``c*4 + dy*2 + dx``, which is a different layout)."""
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError("space_to_depth needs even spatial dims")
+    return (
+        x.reshape(b, h // 2, 2, w // 2, 2, c)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(b, h // 2, w // 2, 4 * c)
+    )
+
+
+class UNet(nn.Module):
+    def __init__(
+        self,
+        in_channels: int,
+        n_classes: int = 1,
+        filters: Sequence[int] = (32, 64, 128, 256, 512),
+        factors: Sequence[int] = (2, 2, 2, 2, 2),
+        head: str = "softmax",
+        threshold: float = 0.5,
+        convs_per_block: int = 2,
+        space_to_depth: bool = False,
+        fold_bn: bool = False,
+    ):
+        super().__init__()
+        if len(filters) != len(factors):
+            raise ValueError("filters and factors must be the same length")
+        if head not in ("softmax", "sigmoid", "linear"):
+            raise ValueError(f"unknown head {head!r}")
+        self.kwargs = dict(
+            in_channels=in_channels, n_classes=n_classes, filters=tuple(filters),
+            factors=tuple(factors), head=head, threshold=threshold,
+            convs_per_block=convs_per_block, space_to_depth=space_to_depth,
+            fold_bn=fold_bn,
+        )
+        self.head_kind = head
+        self.threshold = threshold
+        self.space_to_depth = space_to_depth
+        self.fold_bn = fold_bn
+        self.levels = len(filters)
+
+        ch = in_channels * (4 if space_to_depth else 1)
+        for i, (feat, factor) in enumerate(zip(filters, factors)):
+            self.add_module(f"EncoderBlock_{i}", EncoderBlock(
+                ch, feat, factor, convs_per_block, fold_bn))
+            ch = feat
+        self.ConvBlock_0 = ConvBlock(ch, filters[-1] * 2, convs_per_block, fold_bn)
+        ch = filters[-1] * 2
+        for i, (feat, factor) in enumerate(zip(reversed(filters), reversed(factors))):
+            self.add_module(f"DecoderBlock_{i}", DecoderBlock(
+                ch, feat, feat, factor, fold_bn))
+            ch = feat
+        if space_to_depth:
+            self.stem_upsample = nn.ConvTranspose2d(ch, filters[0], 2, stride=2)
+            self.stem_upsample_bn = None if fold_bn else _bn(filters[0])
+            ch = filters[0]
+        self.head = nn.Conv2d(ch, n_classes, 1)
+
+    def forward(self, x: torch.Tensor):
+        """(B, H, W, C) -> dict of (B, H, W, n_classes) outputs (float32;
+        ``classes`` int32 of shape (B, H, W) for softmax)."""
+        x = x.to(self.head.weight.dtype)
+        if self.space_to_depth:
+            x = space_to_depth(x)
+        x = x.permute(0, 3, 1, 2)
+
+        skips = []
+        for i in range(self.levels):
+            x, skip = getattr(self, f"EncoderBlock_{i}")(x)
+            skips.append(skip)
+        x = self.ConvBlock_0(x)
+        for i, skip in enumerate(reversed(skips)):
+            x = getattr(self, f"DecoderBlock_{i}")(x, skip)
+        if self.space_to_depth:
+            x = self.stem_upsample(x)
+            if self.stem_upsample_bn is not None:
+                x = self.stem_upsample_bn(x)
+            x = F.relu(x)
+
+        logits = self.head(x).float().permute(0, 2, 3, 1).contiguous()
+        if self.head_kind == "softmax":
+            probs = torch.softmax(logits, dim=-1)
+            classes = torch.argmax(probs, dim=-1).to(torch.int32)
+            return {"logits": logits, "probs": probs, "classes": classes}
+        if self.head_kind == "sigmoid":
+            probs = torch.sigmoid(logits)
+            classes = (probs > self.threshold).to(torch.int32)
+            return {"logits": logits, "probs": probs, "classes": classes}
+        return {"continuous": logits}
+
+
+def unet_solar(in_channels: int = 6, **overrides) -> UNet:
+    """Solar-array binary U-Net: 6-band Sentinel-2, threshold 0.9."""
+    kwargs = dict(n_classes=1, head="sigmoid", threshold=0.9)
+    kwargs.update(overrides)
+    return UNet(in_channels, **kwargs)
+
+
+def unet_parking(in_channels: int = 3, **overrides) -> UNet:
+    """Parking-lot binary U-Net: NAIP RGB."""
+    kwargs = dict(n_classes=1, head="sigmoid", threshold=0.5)
+    kwargs.update(overrides)
+    return UNet(in_channels, **kwargs)

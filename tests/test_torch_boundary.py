@@ -1,0 +1,91 @@
+"""The port's boundary: it imports no JAX and nothing of the JAX package,
+and its entry points default to CUDA and raise without it."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import satellite_computervision_tpu_torch as port
+from satellite_computervision_tpu_torch import predict as cli
+from satellite_computervision_tpu_torch._device import resolve_device
+from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+
+ROOT = pathlib.Path(port.__file__).resolve().parent
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "satellite_computervision_tpu")
+
+
+def _module(path):
+    parts = path.relative_to(ROOT.parent).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+MODULES = sorted(_module(p) for p in ROOT.rglob("*.py"))
+
+
+def test_imports_with_jax_blocked():
+    """Every module imports in a fresh interpreter whose meta-path refuses
+    jax/flax/optax and the JAX package."""
+    code = f"""
+import sys
+BLOCKED = {BLOCKED!r}
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Blocker())
+import importlib
+for m in {MODULES!r}:
+    importlib.import_module(m)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(sys.modules)
+print("ok", len({MODULES!r}))
+"""
+    root = str(ROOT.parent)
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["ok", str(len(MODULES))]
+
+
+@pytest.mark.parametrize("path", sorted(ROOT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in BLOCKED, f"{path}: imports {name}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_engine_defaults_to_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TiledInferenceEngine(lambda c: c)
+    assert TiledInferenceEngine(lambda c: c, device="cpu").device.type == "cpu"
+
+
+def test_cli_defaults_to_cuda(no_cuda, tmp_path):
+    np.save(tmp_path / "s.npy", np.zeros((8, 8, 6), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["scene", "--input", str(tmp_path / "s.npy"), "--ckpt", str(tmp_path)])
