@@ -7,25 +7,39 @@ Phases (one JSON line each; any failure exits nonzero before the last
 line):
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA.
-2. ``build``: nvcc builds every kernel in ``csrc/`` (all at once).
+2. ``build``: nvcc builds every kernel in ``csrc/`` (all at once), and
+   g++ the host TFRecord codec (``native/fastrecord.cc``).
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at a small shape and at the shape the serving path gives it; kernel,
-   plain and library times (CUDA events) beside the card's bound.
+   at a small shape and at the shape its path gives it; kernel, plain and
+   library times (CUDA events) beside the card's bound.
 4. ``slice``: the solar serving path at full ``SOLAR_CONFIG`` width — the
    ``predict`` CLI (k512 + b128, batch 16, hann, grid mode, bf16,
    space-to-depth stem, folded BN) on a 1920 x 1920 x 6 scene with seeded
    random weights, GeoTIFF out and read back — with every kernel's launch
    count taken over that run; then one chip's float32 forward on the card
    (TF32 off) against the CPU, and the warm scene time.
-5. ``profile``: one warm scene under ``torch.profiler``: device time by
-   kernel and the device's busy share.
+5. ``train``: the solar training path at full ``SOLAR_CONFIG`` width —
+   synthetic EE-schema GZIP TFRecords (6 bands, 256², bright squares on
+   noise) -> ``get_training_dataset`` -> ``make_preprocess_fn(axes=(0,
+   1))`` (the CUDA ``fused_preprocess``) -> ``Trainer`` (batch 64, S2D,
+   bf16 autocast, weighted BCE on logits, Adam 9e-4, BN momentum 0.9)
+   with eval and a best-metric ``CheckpointManager``, launch counts taken
+   over that run; one float32 train step on the card (TF32 off) against
+   the CPU from the same init and batch; warm step, preprocess and fed
+   (host pipeline included) times; then the trained ``best`` checkpoint
+   served through the ``predict`` CLI.
+6. ``profile``: one warm scene and three warm train steps under
+   ``torch.profiler``: device time by kernel and the device's busy share.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result. Writes scratch files under ``build/chip_smoke/``.
 """
 
+import copy
+import gzip
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,6 +49,7 @@ import numpy as np
 
 SEED = 0
 SCENE = (1920, 1920, 6)
+TRAIN_STEPS, TRAIN_EPOCHS = 3, 2  # steps per epoch; an eval ends each epoch
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -47,6 +62,14 @@ def emit(phase, **fields):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): bytes over the memory rate against float32
+    operations over the peak float32 rate, whichever is larger."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -64,6 +87,26 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn, iters=10):
+    """Sorted host-clock milliseconds of ``iters`` warm calls, each ended
+    by a device synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
 
 
 def fold_blend(weighted, k, rows, cols, inv_w):
@@ -99,11 +142,38 @@ def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed):
         out["library_ms"] = cuda_ms(lambda: fold_blend(weighted, k, rows, cols, inv_w))
         n_in = weighted.numel() + (rows + 1) * k + (cols + 1) * k  # chips + wy + wx
         n_out = got.numel()
-        bytes_ms = (n_in + n_out) * 4 / HBM_BYTES_PER_S * 1e3
         # one add per chip pixel, then wy*wx, 1/max and the scale per output
-        ops_ms = (weighted.numel() + 3 * n_out) / F32_OPS_PER_S * 1e3
-        out["bound_ms"] = max(bytes_ms, ops_ms)
-        out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        out["bound_ms"], out["bound_by"] = bound((n_in + n_out) * 4,
+                                                 weighted.numel() + 3 * n_out)
+    return out
+
+
+def preprocess_case(torch, pre, shape, n_color, augment, gen, timed):
+    """fused_preprocess on the card against its plain version on the same
+    inputs (bands in [0, 0.8], as reflectances are)."""
+    b, k, _, c = shape
+    bands = (torch.rand(shape, generator=gen) * 0.8).cuda()
+    draws = (tuple(d.cuda() for d in pre.draw_augment_params(gen, b, n_color))
+             if augment else (None, None, None))
+    got = pre.fused_preprocess(bands, n_color, *draws, augment=augment)
+    want = pre.fused_preprocess_reference(bands, n_color, *draws, augment=augment)
+    torch.cuda.synchronize()
+    out = dict(shape=list(shape), n_color=n_color, augment=augment,
+               max_abs_err=(got - want).abs().max().item())
+    if timed:
+        out["ms"] = cuda_ms(lambda: pre.fused_preprocess(bands, n_color, *draws,
+                                                         augment=augment))
+        out["plain_ms"] = cuda_ms(lambda: pre.fused_preprocess_reference(
+            bands, n_color, *draws, augment=augment), iters=10, warmup=2)
+        # each input read once, each output written once; the draws
+        n_bytes = 2 * bands.numel() * 4 + (b * (2 * n_color + 3) * 4 if augment else 0)
+        # per color element: the sum, the recolor's sub/mul/mul/add, min,
+        # max, then the rescale's sub and div (without augment: the last 4)
+        n_ops = b * k * k * n_color * (9 if augment else 4)
+        out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
+        out["library_ms"] = None
+        out["library_note"] = ("no single PyTorch call computes recolor + per-channel "
+                               "min/max rescale + per-chip flip/rot90")
     return out
 
 
@@ -127,6 +197,213 @@ def randomize_(model, gen):
                 mod.running_var.copy_(0.5 + torch.rand(n, generator=gen))
 
 
+def synthesize_chips(path, n, bands, response, kernel, seed):
+    """EE-schema GZIP TFRecord of ``n`` chips: bright squares ("solar
+    arrays", label 1) on uniform noise, as examples/solar_end_to_end.py
+    makes them, scaled to ``kernel``. gzip level 1 keeps the write short;
+    readers see an ordinary GZIP stream."""
+    from satellite_computervision_tpu_torch.data.tfrecord import TFRecordWriter, build_example
+
+    rng = np.random.default_rng(seed)
+    s = kernel // 64
+    with gzip.open(path, "wb", compresslevel=1) as f, TFRecordWriter(f, None) as writer:
+        for _ in range(n):
+            chip = rng.uniform(0.05, 0.3, (len(bands), kernel, kernel)).astype(np.float32)
+            label = np.zeros((kernel, kernel), np.float32)
+            for _ in range(rng.integers(1, 4)):
+                y, x = rng.integers(4 * s, kernel - 20 * s, 2)
+                h, w = rng.integers(8 * s, 16 * s, 2)
+                label[y:y + h, x:x + w] = 1.0
+                chip[:, y:y + h, x:x + w] += 0.5
+            ex = {b: chip[i].reshape(-1) for i, b in enumerate(bands)}
+            ex[response] = label.reshape(-1)
+            writer.write(build_example(ex))
+
+
+def serve_through_cli(torch, predict, stitch, read_geotiff, ckpt, scene_path, out_path):
+    """The ``predict`` CLI on the scene, with the kernels' launch counts
+    set to 0 just before and read just after; checks the GeoTIFF."""
+    stitch.hann_stitch.launches = 0
+    t0 = time.perf_counter()
+    predict.main(["scene", "--input", scene_path, "--ckpt", ckpt, "--config", "solar",
+                  "--fold-bn", "--device", "cuda", "--output", out_path,
+                  "--crs", "EPSG:32617", "--transform", "10", "0", "500000", "0", "-10",
+                  "4500000"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {"hann_stitch": stitch.hann_stitch.launches}
+    check(all(launches.values()), f"a kernel of the serving path never launched: {launches}")
+    pred, meta = read_geotiff(out_path)
+    check(pred.shape == SCENE[:2] + (1,), f"output shape {pred.shape}")
+    check(np.isfinite(pred).all(), "non-finite output")
+    check(pred.min() >= 0.0 and pred.max() <= 1.0, "probabilities outside [0, 1]")
+    check(meta.get("crs") == "EPSG:32617", f"crs lost: {meta}")
+    return pred, launches, cli_s
+
+
+def device_profile(torch, fn, calls=1):
+    """(wall ms, device ms, busy share, top kernels) of ``calls`` calls of
+    ``fn`` under torch.profiler; device-side events only (kernels, copies,
+    memsets; not the ranges that annotate them, such as the optimizer
+    step's). One stream does the work, so their sum over the wall time is
+    the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    dev = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    dev.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in dev)
+    return dict(wall_ms=wall, device_ms=busy if dev else "not measured",
+                device_busy_share=busy / wall if dev else "not measured",
+                top=[{"name": n[:90], "ms": ms, "count": c} for n, ms, c in dev[:12]])
+
+
+def train_phase(torch, work, gen):
+    """The solar training path at full width, then its checkpoint served.
+    Returns (phase fields, launches, warm train step callable)."""
+    from satellite_computervision_tpu_torch import predict
+    from satellite_computervision_tpu_torch.data.pipeline import (
+        get_eval_dataset,
+        get_training_dataset,
+        make_preprocess_fn,
+    )
+    from satellite_computervision_tpu_torch.geo import read_geotiff
+    from satellite_computervision_tpu_torch.kernels import preprocess as pre
+    from satellite_computervision_tpu_torch.kernels import stitch
+    from satellite_computervision_tpu_torch.models import unet_solar
+    from satellite_computervision_tpu_torch.models.unet import flax_init_
+    from satellite_computervision_tpu_torch.train.checkpoint import CheckpointManager
+    from satellite_computervision_tpu_torch.train.config import SOLAR_CONFIG as cfg
+    from satellite_computervision_tpu_torch.train.trainer import (
+        Trainer,
+        create_train_state,
+        make_train_step,
+    )
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    k, batch, bands = cfg.kernel_size, cfg.train_batch, list(cfg.bands)
+    names = bands + [cfg.response]
+    data = os.path.join(work, "tfrecords")
+    os.makedirs(data, exist_ok=True)
+    t0 = time.perf_counter()
+    train_files = [os.path.join(data, f"train-{i}.tfrecord.gz") for i in range(2)]
+    eval_files = [os.path.join(data, "eval-0.tfrecord.gz")]
+    for i, path in enumerate(train_files + eval_files):
+        synthesize_chips(path, batch, bands, cfg.response, k, SEED + 10 + i)
+    synth_s = time.perf_counter() - t0
+
+    model_kw = dict(in_channels=len(bands), space_to_depth=True, bn_momentum=0.9)
+    model = flax_init_(unet_solar(**model_kw), torch.Generator().manual_seed(SEED))
+    init_state = copy.deepcopy(model.state_dict())
+    model = model.to("cuda", memory_format=torch.channels_last)
+    loss_fn, pred_key = get_family(cfg.family).loss(cfg)  # weighted BCE on logits
+    ckpt = os.path.join(work, "train_ckpt")
+    trainer = Trainer(create_train_state(model, cfg.learning_rate), loss_fn, pred_key=pred_key,
+                      num_classes=2, monitor=cfg.monitor,
+                      checkpoint_manager=CheckpointManager(ckpt), compute_dtype=torch.bfloat16)
+    train_it = get_training_dataset(train_files, names, kernel_size=k, batch_size=batch,
+                                    shuffle_buffer=batch, seed=SEED, device="cuda")
+    preprocess = make_preprocess_fn(bands, cfg.response, axes=(0, 1), device="cuda")
+    check(preprocess.fused, "axes=(0, 1) must take the fused_preprocess route")
+    draw_gen = torch.Generator().manual_seed(SEED + 1)
+
+    def train_batches():
+        for raw in train_it:
+            yield preprocess(raw, draw_gen, train=True)
+
+    def eval_batches():
+        for raw in get_eval_dataset(eval_files, names, kernel_size=k, batch_size=batch,
+                                    device="cuda"):
+            yield preprocess(raw, train=False)
+
+    # ---- warm device-side times on one batch already on the card, taken
+    # while no decode thread runs (the eval file is one batch, its reader
+    # ends after it)
+    torch.cuda.reset_peak_memory_stats()
+    raw = next(iter(get_eval_dataset(eval_files, names, kernel_size=k, batch_size=batch,
+                                     device="cuda")))
+    x, y = preprocess(raw, draw_gen, train=True)
+    step_ms = wall_ms(lambda: trainer.train_step(trainer.state, (x, y)))
+    pre_ms = wall_ms(lambda: preprocess(raw, draw_gen, train=True))
+    med_step, med_pre = median(step_ms), median(pre_ms)
+    chips_per_s = batch / ((med_step + med_pre) / 1e3)
+
+    # ---- the path, with the launch counts taken over it
+    batches = train_batches()
+    pre.fused_preprocess.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.fit(batches, epochs=TRAIN_EPOCHS, steps_per_epoch=TRAIN_STEPS,
+                          eval_fn=eval_batches, log_fn=lambda r: None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"fused_preprocess": pre.fused_preprocess.launches}
+    check(all(launches.values()), f"a kernel of the training path never launched: {launches}")
+    losses = [r[part]["loss"] for r in history for part in ("train", "val")]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    check(any(r.get("checkpointed") for r in history), "no best checkpoint was kept")
+    check(os.path.exists(os.path.join(ckpt, "best", "model.pt")), "best/model.pt missing")
+
+    # ---- fed throughput: decode + H2D + preprocess + step, warm
+    n_fed = 6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_fed):
+        out = trainer.train_step(trainer.state, next(batches))
+    float(out["loss"])
+    fed_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- one float32 step on the card (TF32 off) against the CPU: same
+    # init, the first 4 chips of a preprocessed batch
+    x4, y4 = x[:4].float().cpu(), y[:4].float().cpu()
+    f32_step = make_train_step(loss_fn, pred_key)
+    results = []
+    for device in ("cpu", "cuda"):
+        ref = unet_solar(**model_kw)
+        ref.load_state_dict(init_state)
+        state = create_train_state(ref.to(device), cfg.learning_rate)
+        loss = float(f32_step(state, (x4.to(device), y4.to(device)))["loss"])
+        results.append((loss, {n: p.grad.detach().cpu() for n, p in ref.named_parameters()}))
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = results
+    g_scale = max(g.abs().max().item() for g in cpu_g.values())
+    grad_err = max((gpu_g[n] - g).abs().max().item() for n, g in cpu_g.items()) / g_scale
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    # float32 on two devices with other conv algorithms, ~40 layers deep,
+    # train-mode BN over 4 chips
+    check(loss_rel <= 1e-4, f"f32 card train loss disagrees with the CPU: {loss_rel}")
+    check(grad_err <= 1e-3, f"f32 card gradients disagree with the CPU: {grad_err}")
+
+    # ---- serve the trained checkpoint through the predict CLI
+    scene_path = os.path.join(work, "scene.npy")
+    _, serve_launches, serve_s = serve_through_cli(
+        torch, predict, stitch, read_geotiff, ckpt, scene_path,
+        os.path.join(work, "pred_trained.tif"))
+
+    fields = dict(
+        config="solar", chips=[batch, k, k, len(bands)], steps_total=trainer.state.step,
+        fit_steps=TRAIN_EPOCHS * TRAIN_STEPS, evals=TRAIN_EPOCHS, dtype="bfloat16 autocast",
+        space_to_depth=True, bn_momentum=0.9, lr=cfg.learning_rate,
+        pos_weight=cfg.loss_kwargs.get("pos_weight", 1.0), launches=launches,
+        history=history, synth_seconds=synth_s, fit_seconds=fit_s,
+        f32_card_vs_cpu_loss=[gpu_loss, cpu_loss], f32_loss_rel_err=loss_rel,
+        f32_grad_max_abs_err_over_max_grad=grad_err,
+        step_ms=step_ms, step_ms_median=med_step,
+        preprocess_ms=pre_ms, preprocess_ms_median=med_pre,
+        preprocess_share=med_pre / (med_pre + med_step),
+        chips_per_s=chips_per_s, mpix_per_s=chips_per_s * k * k / 1e6,
+        fed_chips_per_s=n_fed * batch / fed_s,
+        fed_mpix_per_s=n_fed * batch * k * k / 1e6 / fed_s,
+        peak_mem_gib=peak_gib, serve_launches=serve_launches, serve_cli_seconds=serve_s)
+    return fields, launches, lambda: trainer.train_step(trainer.state, (x, y))
+
+
 def main():
     import torch
 
@@ -134,10 +411,11 @@ def main():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
               file=sys.stderr)
         return 1
-    from satellite_computervision_tpu_torch import predict
+    from satellite_computervision_tpu_torch import native, predict
     from satellite_computervision_tpu_torch.geo import read_geotiff
     from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
     from satellite_computervision_tpu_torch.kernels import _build, stitch
+    from satellite_computervision_tpu_torch.kernels import preprocess as pre
     from satellite_computervision_tpu_torch.models import unet_solar
     from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
     from satellite_computervision_tpu_torch.train.config import SOLAR_CONFIG
@@ -152,7 +430,12 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build(_build.all_kernels())
-    emit("build", seconds=time.perf_counter() - t0, libraries=[str(p.name) for p in libs])
+    nvcc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codec = native.build()
+    check(codec is not None, "g++ could not build native/fastrecord.cc")
+    emit("build", seconds=nvcc_s, libraries=[str(p.name) for p in libs],
+         native_seconds=time.perf_counter() - t0, native=codec.name)
 
     gen = torch.Generator().manual_seed(SEED)
     kernel, buffer, batch = SOLAR_CONFIG.serving_geometry
@@ -164,6 +447,20 @@ def main():
     check(small["max_abs_err"] <= tol and main_shape["max_abs_err"] <= tol,
           f"hann_stitch disagrees with its plain version beyond {tol}")
 
+    # fused_preprocess at the training path's shape: a batch of 64 chips,
+    # 256², the 6 bands + the label channel, 6 recolored
+    n_color = len(SOLAR_CONFIG.bands)
+    path_shape = (SOLAR_CONFIG.train_batch, SOLAR_CONFIG.kernel_size,
+                  SOLAR_CONFIG.kernel_size, n_color + 1)
+    pre_small = [preprocess_case(torch, pre, (3, 16, 16, 4), n, aug, gen, timed=False)
+                 for n in (4, 3, 0) for aug in (True, False)]
+    pre_path = {("augment" if aug else "eval"): preprocess_case(
+        torch, pre, path_shape, n_color, aug, gen, timed=True) for aug in (True, False)}
+    emit("kernels", name="fused_preprocess", small=pre_small, main_path=pre_path)
+    tol = 1e-5  # min/max exact, the mean summed in another order; outputs in [0, 1]
+    pre_err = max(c["max_abs_err"] for c in pre_small + list(pre_path.values()))
+    check(pre_err <= tol, f"fused_preprocess disagrees with its plain version: {pre_err}")
+
     # ---- the solar serving slice, through the CLI a user runs
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -174,24 +471,8 @@ def main():
     scene = (torch.rand(SCENE, generator=gen) * 0.4).numpy()
     scene_path = os.path.join(work, "scene.npy")
     np.save(scene_path, scene)
-    out_path = os.path.join(work, "pred.tif")
-
-    stitch.hann_stitch.launches = 0
-    t0 = time.perf_counter()
-    predict.main(["scene", "--input", scene_path, "--ckpt", ckpt, "--config", "solar",
-                  "--fold-bn", "--device", "cuda", "--output", out_path,
-                  "--crs", "EPSG:32617", "--transform", "10", "0", "500000", "0", "-10",
-                  "4500000"])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = {"hann_stitch": stitch.hann_stitch.launches}
-    check(all(launches.values()), f"a kernel of the path never launched: {launches}")
-
-    pred, meta = read_geotiff(out_path)
-    check(pred.shape == SCENE[:2] + (1,), f"output shape {pred.shape}")
-    check(np.isfinite(pred).all(), "non-finite output")
-    check(pred.min() >= 0.0 and pred.max() <= 1.0, "probabilities outside [0, 1]")
-    check(meta.get("crs") == "EPSG:32617", f"crs lost: {meta}")
+    pred, launches, cli_s = serve_through_cli(torch, predict, stitch, read_geotiff, ckpt,
+                                              scene_path, os.path.join(work, "pred.tif"))
 
     # one chip, float32, card (TF32 off) vs CPU: the same folded model
     served = predict.load_model(ckpt, torch.device("cpu"), fold_bn=True)
@@ -224,17 +505,6 @@ def main():
     def run_dev():
         engine.predict_scene(scene_dev)
 
-    def wall_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return sorted(times)
-
     host_ms = wall_ms(run_host)
     dev_ms = wall_ms(run_dev)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -243,7 +513,7 @@ def main():
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: served_bf16(chips), iters=10, warmup=2)
     mpix = SCENE[0] * SCENE[1] / 1e6
-    med_host, med_dev = host_ms[len(host_ms) // 2], dev_ms[len(dev_ms) // 2]
+    med_host, med_dev = median(host_ms), median(dev_ms)
     emit("slice", config="solar", scene=list(SCENE), geometry=[kernel, buffer, batch],
          blend="hann", dtype="bfloat16", space_to_depth=True, fold_bn=True,
          chips=rows * cols, launches=launches, cli_seconds=cli_s,
@@ -258,34 +528,32 @@ def main():
          mpix_per_s_device_input=mpix / (med_dev / 1e3),
          forward_ms_per_batch=fwd_ms, peak_mem_gib=peak_gib)
 
-    # ---- where a warm scene's device time goes
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # ---- the solar training slice, then its checkpoint served
+    train_fields, train_launches, train_step = train_phase(torch, work, gen)
+    emit("train", **train_fields)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run_dev()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    # device-side events only (kernels, copies, memsets): one stream, so
-    # their sum over the wall time is the device's busy share
-    dev = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    dev.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in dev)
-    emit("profile", wall_ms=wall, device_ms=busy if dev else "not measured",
-         device_busy_share=busy / wall if dev else "not measured",
-         top=[{"name": n[:90], "ms": ms, "count": c} for n, ms, c in dev[:12]])
+    # ---- where a warm scene's and a warm train step's device time goes
+    emit("profile", what="scene", **device_profile(torch, run_dev))
+    emit("profile", what="train_step", calls=3, **device_profile(torch, train_step, calls=3))
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "hann_stitch", "route": "cuda",
-        "source": "satellite_computervision_tpu_torch/csrc/hann_stitch.cu",
-        "replaces": "satellite_computervision_tpu/pallas/stitch.py:130",
-        "launches": launches["hann_stitch"], "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        {"name": "hann_stitch", "route": "cuda",
+         "source": "satellite_computervision_tpu_torch/csrc/hann_stitch.cu",
+         "replaces": "satellite_computervision_tpu/pallas/stitch.py:130",
+         "launches": launches["hann_stitch"], "max_abs_err": main_shape["max_abs_err"],
+         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+         "library_ms": main_shape["library_ms"]},
+        {"name": "fused_preprocess", "route": "cuda",
+         "source": "satellite_computervision_tpu_torch/csrc/fused_preprocess.cu",
+         "replaces": "satellite_computervision_tpu/pallas/preprocess.py:135",
+         "launches": train_launches["fused_preprocess"],
+         "max_abs_err": max(c["max_abs_err"] for c in pre_path.values()),
+         "ms": pre_path["augment"]["ms"], "plain_ms": pre_path["augment"]["plain_ms"],
+         "bound_ms": pre_path["augment"]["bound_ms"],
+         "bound_by": pre_path["augment"]["bound_by"], "library_ms": None},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""U-Net model family (PyTorch), its BN folding and the flax weight bridge."""
+"""U-Net model family (PyTorch), its BN folding, the flax weight bridge,
+losses and metrics."""
 
 from satellite_computervision_tpu_torch.models.blocks import (
     ConvBlock,
@@ -6,9 +7,10 @@ from satellite_computervision_tpu_torch.models.blocks import (
     DecoderBlock,
     EncoderBlock,
 )
+from satellite_computervision_tpu_torch.models import losses, metrics
 from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
 from satellite_computervision_tpu_torch.models.fold import fold_unet
-from satellite_computervision_tpu_torch.models.unet import UNet, unet_parking, unet_solar
+from satellite_computervision_tpu_torch.models.unet import UNet, flax_init_, unet_parking, unet_solar
 
 __all__ = [
     "ConvBNAct",
@@ -20,4 +22,7 @@ __all__ = [
     "unet_parking",
     "fold_unet",
     "flax_to_torch",
+    "flax_init_",
+    "losses",
+    "metrics",
 ]

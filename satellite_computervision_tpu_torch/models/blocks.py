@@ -6,7 +6,13 @@ parameter tree (``Conv_0``, ``BatchNorm_0``, ``ConvTranspose_0``,
 ``affine_0_scale`` ...) so a ``state_dict`` key reads like the JAX path it
 came from (models/bridge.py maps one onto the other).
 
-- BatchNorm uses the Keras epsilon 1e-3, as the JAX blocks do.
+- BatchNorm uses the Keras epsilon 1e-3, as the JAX blocks do, and takes
+  the flax/Keras ``bn_momentum`` (the weight of the old running value;
+  torch's ``momentum`` is ``1 - bn_momentum``). In training it updates the
+  running variance with the biased batch variance, as flax does
+  (``BatchNorm`` below); torch's own update uses the unbiased one.
+- ``dropout`` is channel dropout (flax ``Dropout(broadcast_dims=(1, 2))``
+  on NHWC = ``nn.Dropout2d`` on NCHW) after the decoder's post-concat BN.
 - ``fold_bn=True`` is the serving mode: the BatchNorms are gone (their
   affine lives in the conv weights, models/fold.py), and the decoder's
   post-concat BN is a per-channel affine ``affine_0_scale/bias``.
@@ -15,6 +21,8 @@ came from (models/bridge.py maps one onto the other).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -22,18 +30,47 @@ import torch.nn.functional as F
 BN_EPS = 1e-3  # Keras default, as blocks.py uses
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    # Keras momentum 0.99 is torch momentum 0.01 (serving never updates it)
-    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=0.01)
+BN_MOMENTUM = 0.99  # Keras default, as blocks.py uses
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode running-variance update uses
+    the biased batch variance, as flax's ``BatchNorm`` does.
+
+    Torch's kernel updates ``running_var`` with ``(1-m)*rv + m*u``, ``u``
+    the unbiased variance ``n/(n-1)`` times the biased one ``v``; the
+    flax update is ``(1-m)*rv + m*v``. The difference is ``m*u/n``, which
+    is recovered from the updated buffer and subtracted: a per-channel
+    correction, no second pass over the activations."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        # the kernel updates this copy in place to (1-m)*running_var + m*u;
+        # autograd keeps it, so the buffer itself is written afterwards
+        updated = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, updated, self.weight, self.bias, True,
+                           self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_(
+                updated - (updated - (1.0 - self.momentum) * self.running_var) / n)
+        return out
+
+
+def _bn(ch: int, bn_momentum: float = BN_MOMENTUM) -> BatchNorm:
+    return BatchNorm(ch, eps=BN_EPS, momentum=1.0 - bn_momentum)
 
 
 class ConvBNAct(nn.Module):
     """Conv2D(3x3, SAME) -> BatchNorm -> ReLU."""
 
-    def __init__(self, in_ch: int, features: int, fold_bn: bool = False):
+    def __init__(self, in_ch: int, features: int, fold_bn: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_ch, features, 3, padding="same")
-        self.BatchNorm_0 = None if fold_bn else _bn(features)
+        self.BatchNorm_0 = None if fold_bn else _bn(features, bn_momentum)
 
     def forward(self, x):
         x = self.Conv_0(x)
@@ -46,13 +83,14 @@ class ConvBlock(nn.Module):
     """n x (conv -> BN -> relu)."""
 
     def __init__(self, in_ch: int, features: int, n_convs: int = 2,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         self.n_convs = n_convs
         for i in range(n_convs):
             self.add_module(
                 f"ConvBNAct_{i}",
-                ConvBNAct(in_ch if i == 0 else features, features, fold_bn=fold_bn),
+                ConvBNAct(in_ch if i == 0 else features, features, fold_bn=fold_bn,
+                          bn_momentum=bn_momentum),
             )
 
     def forward(self, x):
@@ -65,10 +103,11 @@ class EncoderBlock(nn.Module):
     """conv_block -> max_pool(factor); returns (pooled, skip)."""
 
     def __init__(self, in_ch: int, features: int, pool: int = 2,
-                 n_convs: int = 2, fold_bn: bool = False):
+                 n_convs: int = 2, fold_bn: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         self.pool = pool
-        self.ConvBlock_0 = ConvBlock(in_ch, features, n_convs, fold_bn)
+        self.ConvBlock_0 = ConvBlock(in_ch, features, n_convs, fold_bn, bn_momentum)
 
     def forward(self, x):
         skip = self.ConvBlock_0(x)
@@ -76,14 +115,16 @@ class EncoderBlock(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """transpose_conv -> concat [skip, up] -> BN -> relu -> 2x(conv->BN->relu).
+    """transpose_conv -> concat [skip, up] -> BN -> relu [-> channel dropout]
+    -> 2x(conv->BN->relu).
 
     With ``fold_bn`` the post-concat BN (it normalizes skip channels too,
     so it has no single preceding conv to fold into) is the per-channel
     affine ``affine_0_scale``/``affine_0_bias``."""
 
     def __init__(self, in_ch: int, skip_ch: int, features: int, up: int = 2,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM,
+                 dropout: Optional[float] = None):
         super().__init__()
         cat = skip_ch + features
         self.fold_bn = fold_bn
@@ -92,9 +133,10 @@ class DecoderBlock(nn.Module):
             self.affine_0_scale = nn.Parameter(torch.ones(cat))
             self.affine_0_bias = nn.Parameter(torch.zeros(cat))
         else:
-            self.BatchNorm_0 = _bn(cat)
-            self.BatchNorm_1 = _bn(features)
-            self.BatchNorm_2 = _bn(features)
+            self.BatchNorm_0 = _bn(cat, bn_momentum)
+            self.BatchNorm_1 = _bn(features, bn_momentum)
+            self.BatchNorm_2 = _bn(features, bn_momentum)
+        self.dropout = None if dropout is None else nn.Dropout2d(dropout)
         self.Conv_0 = nn.Conv2d(cat, features, 3, padding="same")
         self.Conv_1 = nn.Conv2d(features, features, 3, padding="same")
 
@@ -105,6 +147,8 @@ class DecoderBlock(nn.Module):
         else:
             x = self.BatchNorm_0(x)
         x = F.relu(x)
+        if self.dropout is not None:
+            x = self.dropout(x)
         for i in range(2):
             x = getattr(self, f"Conv_{i}")(x)
             if not self.fold_bn:

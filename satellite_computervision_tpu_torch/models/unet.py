@@ -10,24 +10,59 @@ output dict:
 The public forward keeps the JAX layout: NHWC in, NHWC out. Inside, the
 trunk runs NCHW; an NHWC input permuted to NCHW has channels-last strides,
 which is what cuDNN prefers on the card. The input is cast to the
-parameters' dtype (bf16 when serving), and the logits are cast to float32
+parameters' dtype (bf16 when serving; training in bf16 runs float32
+parameters under ``torch.autocast``), and the logits are cast to float32
 before the head, as the JAX model does.
+
+A new ``UNet`` starts from flax's default initialization
+(:func:`flax_init_`): truncated LeCun-normal kernels, zero biases (the
+head's bias ``output_bias`` when given), BatchNorm scale 1 and bias 0.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from satellite_computervision_tpu_torch.models.blocks import (
+    BN_MOMENTUM,
     ConvBlock,
     DecoderBlock,
     EncoderBlock,
     _bn,
 )
+
+# flax's truncated_normal initializer draws a standard normal truncated at
+# +-2 and divides the target std by this (the truncated normal's std)
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(model: nn.Module, generator: Optional[torch.Generator] = None,
+               output_bias: Optional[float] = None) -> nn.Module:
+    """Reset ``model``'s weights in place to flax's defaults: conv and
+    transposed-conv kernels ``lecun_normal`` (truncated normal, std
+    ``sqrt(1/fan_in)``, fan_in = in_channels * kh * kw, as flax counts it
+    for both kinds), zero biases, BatchNorm scale 1 / bias 0 and fresh
+    running statistics. ``output_bias`` sets the ``head`` conv's bias.
+    Draws come from ``generator`` (torch's default generator if None)."""
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = mod.weight
+                in_ch = w.shape[1] if isinstance(mod, nn.Conv2d) else w.shape[0]
+                std = (1.0 / (in_ch * w.shape[2] * w.shape[3])) ** 0.5 / _TRUNC_STD
+                w.copy_(torch.nn.init.trunc_normal_(
+                    torch.empty(w.shape), std=std, a=-2 * std, b=2 * std,
+                    generator=generator))
+                if mod.bias is not None:
+                    bias = output_bias if name == "head" and output_bias is not None else 0.0
+                    mod.bias.fill_(bias)
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+    return model
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +91,9 @@ class UNet(nn.Module):
         convs_per_block: int = 2,
         space_to_depth: bool = False,
         fold_bn: bool = False,
+        bn_momentum: float = BN_MOMENTUM,
+        dropout: Optional[float] = None,
+        output_bias: Optional[float] = None,
     ):
         super().__init__()
         if len(filters) != len(factors):
@@ -66,7 +104,8 @@ class UNet(nn.Module):
             in_channels=in_channels, n_classes=n_classes, filters=tuple(filters),
             factors=tuple(factors), head=head, threshold=threshold,
             convs_per_block=convs_per_block, space_to_depth=space_to_depth,
-            fold_bn=fold_bn,
+            fold_bn=fold_bn, bn_momentum=bn_momentum, dropout=dropout,
+            output_bias=output_bias,
         )
         self.head_kind = head
         self.threshold = threshold
@@ -77,19 +116,22 @@ class UNet(nn.Module):
         ch = in_channels * (4 if space_to_depth else 1)
         for i, (feat, factor) in enumerate(zip(filters, factors)):
             self.add_module(f"EncoderBlock_{i}", EncoderBlock(
-                ch, feat, factor, convs_per_block, fold_bn))
+                ch, feat, factor, convs_per_block, fold_bn, bn_momentum))
             ch = feat
-        self.ConvBlock_0 = ConvBlock(ch, filters[-1] * 2, convs_per_block, fold_bn)
+        self.ConvBlock_0 = ConvBlock(ch, filters[-1] * 2, convs_per_block, fold_bn,
+                                     bn_momentum)
         ch = filters[-1] * 2
         for i, (feat, factor) in enumerate(zip(reversed(filters), reversed(factors))):
             self.add_module(f"DecoderBlock_{i}", DecoderBlock(
-                ch, feat, feat, factor, fold_bn))
+                ch, feat, feat, factor, fold_bn, bn_momentum, dropout))
             ch = feat
         if space_to_depth:
             self.stem_upsample = nn.ConvTranspose2d(ch, filters[0], 2, stride=2)
-            self.stem_upsample_bn = None if fold_bn else _bn(filters[0])
+            self.stem_upsample_bn = None if fold_bn else _bn(filters[0], bn_momentum)
             ch = filters[0]
+        self.dropout = None if dropout is None else nn.Dropout2d(dropout)
         self.head = nn.Conv2d(ch, n_classes, 1)
+        flax_init_(self, output_bias=output_bias)
 
     def forward(self, x: torch.Tensor):
         """(B, H, W, C) -> dict of (B, H, W, n_classes) outputs (float32;
@@ -111,6 +153,8 @@ class UNet(nn.Module):
             if self.stem_upsample_bn is not None:
                 x = self.stem_upsample_bn(x)
             x = F.relu(x)
+        if self.dropout is not None:
+            x = self.dropout(x)
 
         logits = self.head(x).float().permute(0, 2, 3, 1).contiguous()
         if self.head_kind == "softmax":

@@ -1,12 +1,14 @@
-"""The port's checkpoint format.
+"""The port's checkpoint format and the best/latest checkpoint manager.
 
-A checkpoint directory ``<dir>`` holds ``<dir>/best/model.pt`` (the
-best-metric weights, as the JAX package's ``<dir>/best``): one ``torch.save``
-of ``{"model_kwargs", "state_dict", "meta"}``, where ``model_kwargs`` are
-the ``UNet`` constructor arguments (``UNet.kwargs``) and ``meta`` is a
-JSON-able dict (step, metrics). Reading the JAX package's msgpack
-checkpoints is not ported yet; tests move JAX weights across with
-``models.bridge.flax_to_torch``.
+A checkpoint is one file ``<dir>/<which>/model.pt`` (``which`` is
+``best`` or ``latest``, as the JAX package's ``<dir>/best``): one
+``torch.save`` of ``{"model_kwargs", "state_dict", "meta"}`` plus, when a
+training state is saved, ``"optimizer"`` (the optimizer's
+``state_dict``) and ``"step"``. ``model_kwargs`` are the ``UNet``
+constructor arguments (``UNet.kwargs``); ``meta`` is a JSON-able dict
+``{"step", "metrics"}``. ``predict.load_model`` reads ``<dir>/best``.
+Reading the JAX package's msgpack and orbax checkpoints is not ported yet;
+tests move JAX weights across with ``models.bridge.flax_to_torch``.
 """
 
 from __future__ import annotations
@@ -18,27 +20,71 @@ import torch
 
 from satellite_computervision_tpu_torch.models.unet import UNet
 
-CHECKPOINT_FILE = os.path.join("best", "model.pt")
+
+def _file(path: str, which: str) -> str:
+    return os.path.join(path, which, "model.pt")
 
 
-def save_checkpoint(path: str, model: UNet, meta: Optional[Dict] = None) -> str:
-    """Write ``model`` (weights as float32 on the CPU) to
-    ``path/best/model.pt``; returns the file path."""
-    os.makedirs(os.path.join(path, "best"), exist_ok=True)
+def save_checkpoint(path: str, model: UNet, meta: Optional[Dict] = None, which: str = "best",
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    step: Optional[int] = None) -> str:
+    """Write ``model`` (weights as float32 on the CPU), and the optimizer
+    state and step when given, to ``path/<which>/model.pt``; returns the
+    file path. The file is written whole, then renamed into place."""
+    out = _file(path, which)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     state = {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
              for k, v in model.state_dict().items()}
-    out = os.path.join(path, CHECKPOINT_FILE)
-    torch.save({"model_kwargs": dict(model.kwargs), "state_dict": state,
-                "meta": dict(meta or {})}, out)
+    blob = {"model_kwargs": dict(model.kwargs), "state_dict": state, "meta": dict(meta or {})}
+    if optimizer is not None:
+        blob["optimizer"] = optimizer.state_dict()
+    if step is not None:
+        blob["step"] = int(step)
+    torch.save(blob, out + ".tmp")
+    os.replace(out + ".tmp", out)
     return out
 
 
-def load_checkpoint(path: str, **overrides) -> Tuple[UNet, Dict]:
-    """Rebuild the ``UNet`` saved at ``path/best/model.pt`` (float32, CPU) and
-    return ``(model, meta)``. ``overrides`` replace saved constructor
-    arguments; a mismatching weight layout raises."""
-    blob = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu",
-                      weights_only=True)
+def _read(path: str, which: str) -> Dict:
+    return torch.load(_file(path, which), map_location="cpu", weights_only=True)
+
+
+def load_checkpoint(path: str, which: str = "best", **overrides) -> Tuple[UNet, Dict]:
+    """Rebuild the ``UNet`` saved at ``path/<which>/model.pt`` (float32,
+    CPU, eval mode) and return ``(model, meta)``. ``overrides`` replace
+    saved constructor arguments; a mismatching weight layout raises."""
+    blob = _read(path, which)
     model = UNet(**{**blob["model_kwargs"], **overrides})
     model.load_state_dict(blob["state_dict"])
     return model.eval(), blob["meta"]
+
+
+class CheckpointManager:
+    """Keeps the ``best`` and ``latest`` training checkpoints under
+    ``root``."""
+
+    def __init__(self, root: str):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+
+    def save(self, state, step: int, metrics: Optional[Dict[str, float]] = None):
+        meta = {"step": int(step), "metrics": metrics or {}}
+        for which in ("best", "latest"):
+            save_checkpoint(self.root, state.model, meta, which=which,
+                            optimizer=state.optimizer, step=step)
+
+    def restore(self, state, which: str = "best"):
+        """Load weights, BN statistics, optimizer state and step of
+        ``root/<which>`` into ``state`` (in place, onto its device);
+        returns ``(state, meta)``."""
+        blob = _read(self.root, which)
+        state.model.load_state_dict(blob["state_dict"])
+        if "optimizer" in blob:
+            state.optimizer.load_state_dict(blob["optimizer"])
+        state.step = int(blob.get("step", blob["meta"].get("step", 0)))
+        return state, blob["meta"]
+
+    def best_metrics(self) -> Dict[str, float]:
+        if not os.path.exists(_file(self.root, "best")):
+            return {}
+        return _read(self.root, "best")["meta"].get("metrics", {})

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from satellite_computervision_tpu_torch.data.pipeline import make_preprocess_fn
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
-from satellite_computervision_tpu_torch.kernels import stitch
+from satellite_computervision_tpu_torch.kernels import preprocess, stitch
 from satellite_computervision_tpu_torch.models import UNet
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +55,63 @@ def test_hann_stitch_kernel_rejects_what_it_cannot_take(cuda):
         stitch.hann_stitch(x.double(), 16, 3, 4)
     with pytest.raises(ValueError):
         stitch.hann_stitch(x.transpose(1, 2), 16, 3, 4)
+
+
+@pytest.mark.parametrize("augment", [True, False], ids=["augment", "eval"])
+@pytest.mark.parametrize("b,k,c,n_color", [
+    (3, 16, 4, 4),      # every channel recolored
+    (3, 16, 4, 3),      # a trailing label channel
+    (2, 9, 3, 0),       # nothing recolored: the morph only
+    (1, 5, 300, 299),   # more channels than a block's 256 threads
+    (64, 256, 7, 6),    # the training path: 6 bands + the label
+])
+def test_fused_preprocess_kernel_matches_plain(cuda, b, k, c, n_color, augment):
+    gen = torch.Generator().manual_seed(b * k + c)
+    bands = (torch.rand((b, k, k, c), generator=gen) * 3000.0).to(cuda)
+    draws = preprocess.draw_augment_params(gen, b, max(n_color, 1)) if augment else (None,) * 3
+    before = preprocess.fused_preprocess.launches
+    got = preprocess.fused_preprocess(bands, n_color, *draws, augment=augment)
+    torch.cuda.synchronize()
+    assert preprocess.fused_preprocess.launches == before + 1
+    want = preprocess.fused_preprocess_reference(bands, n_color, *draws, augment=augment)
+    # min/max exact, the mean summed in another order: outputs in [0, 1]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_fused_preprocess_kernel_propagates_nan(cuda):
+    bands = torch.rand((2, 8, 8, 3), device=cuda)
+    bands[0, 3, 4, 1] = float("nan")
+    got = preprocess.fused_preprocess(bands, 3, augment=False)
+    want = preprocess.fused_preprocess_reference(bands, 3, augment=False)
+    assert torch.isnan(got[0, ..., 1]).all() and not torch.isnan(got[1]).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6, equal_nan=True)
+
+
+def test_fused_preprocess_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros((2, 8, 8, 3), device=cuda)
+    with pytest.raises(ValueError):
+        preprocess.fused_preprocess(x.double(), augment=False)
+    with pytest.raises(ValueError):
+        preprocess.fused_preprocess(x.transpose(1, 2), augment=False)
+    with pytest.raises(ValueError, match="requires draws"):
+        preprocess.fused_preprocess(x)
+
+
+def test_make_preprocess_fn_on_cuda_runs_the_kernel(cuda):
+    rng = np.random.default_rng(2)
+    bands = ["B2", "B3", "B4"]
+    batch = {b: rng.uniform(0, 3000, (4, 16, 16)).astype(np.float32) for b in bands}
+    batch["landcover"] = rng.integers(0, 2, (4, 16, 16)).astype(np.float32)
+    draws = preprocess.draw_augment_params(torch.Generator().manual_seed(0), 4, 3)
+    got, want = [], []
+    for device, out in ((cuda, got), ("cpu", want)):
+        pre = make_preprocess_fn(bands, "landcover", axes=(0, 1), device=device)
+        before = preprocess.fused_preprocess.launches
+        for train in (True, False):
+            out.extend(t.cpu() for t in pre(batch, train=train, draws=draws))
+        assert preprocess.fused_preprocess.launches == before + 2 * (device == cuda)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("blend", ["overwrite", "hann"])
