@@ -10,8 +10,15 @@ line):
 2. ``build``: nvcc builds every kernel in ``csrc/`` (all at once), and
    g++ the host TFRecord codec (``native/fastrecord.cc``).
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at a small shape and at the shape its path gives it; kernel, plain and
-   library times (CUDA events) beside the card's bound.
+   at a small shape and at the shape its path gives it (``hann_stitch`` on
+   the engine's route, raw predictions with the window applied in the
+   kernel, bit-equal, and on pre-weighted chips; ``fused_preprocess`` also
+   with a NaN plane, negative and zero contrast and every flip/rotation,
+   and at the parking preset's 16 x 512² x 4 chips, whose rows do not fit
+   in shared memory: the kernel's streamed route). ``ms``, ``plain_ms``
+   and ``library_ms`` are on one clock: CUDA events around back-to-back
+   calls, host overhead included. ``device_ms`` beside them is the
+   kernel's own device time (``torch.profiler``). Then the card's bound.
 4. ``slice``: the solar serving path at full ``SOLAR_CONFIG`` width — the
    ``predict`` CLI (k512 + b128, batch 16, hann, grid mode, bf16,
    space-to-depth stem, folded BN) on a 1920 x 1920 x 6 scene with seeded
@@ -28,8 +35,9 @@ line):
    the CPU from the same init and batch; warm step, preprocess and fed
    (host pipeline included) times; then the trained ``best`` checkpoint
    served through the ``predict`` CLI.
-6. ``profile``: one warm scene and three warm train steps under
-   ``torch.profiler``: device time by kernel and the device's busy share.
+6. ``profile``: one warm scene, three warm train steps and five warm
+   ``make_preprocess_fn`` calls under ``torch.profiler``: device time by
+   kernel, host time by op and the device's busy share.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -72,9 +80,10 @@ def bound(n_bytes, n_ops):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def cuda_ms(fn, iters=50, warmup=5):
+def cuda_ms(fn, iters=200, warmup=20):
     """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls
-    (CUDA events; warm, L2 not flushed)."""
+    (CUDA events; warm, L2 not flushed). The long warm-up matters for a
+    ~20 us kernel: the first calls' host time exceeds the kernel's."""
     import torch
 
     for _ in range(warmup):
@@ -87,6 +96,27 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, name=None, calls=50):
+    """Mean device milliseconds per call of ``fn`` under torch.profiler:
+    of the kernels whose name holds ``name``, or of every device event
+    (kernels, copies, memsets) when ``name`` is None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and (name is None or name in e.key)]
+    total = sum(e.device_time_total for e in events) / 1e3
+    return total / calls if events else "not measured"
 
 
 def wall_ms(fn, iters=10):
@@ -109,11 +139,13 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def fold_blend(weighted, k, rows, cols, inv_w):
-    """Library yardstick for hann_stitch: ``F.fold`` overlap-adds the chips,
-    then the constant normalizer. Timed only; the port never calls it."""
+def fold_blend(preds, k, rows, cols, window, inv_w):
+    """Library yardstick for hann_stitch on the engine's route: the window
+    multiply, ``F.fold`` to overlap-add the chips, then the constant
+    normalizer. Timed only; the port never calls it."""
     import torch.nn.functional as F
 
+    weighted = preds * window[..., None]
     n, side, _, c = weighted.shape
     h, w = (rows - 1) * k + side, (cols - 1) * k + side
     folded = F.fold(weighted.permute(3, 1, 2, 0).reshape(1, c * side * side, n),
@@ -123,46 +155,84 @@ def fold_blend(weighted, k, rows, cols, inv_w):
 
 
 def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed):
+    """hann_stitch on the card against its plain version: the engine's
+    route (raw predictions, ``apply_window=True``: bit-equal) and the TPU
+    kernel's (pre-weighted chips); the engine's route timed."""
     side = k + buf
-    win = torch.from_numpy(stitch.hann_window_1d(side))
-    weighted = (torch.randn(rows * cols, side, side, c_out, generator=gen)
-                * (win[:, None] * win[None, :])[..., None]).cuda().contiguous()
-    got = stitch.hann_stitch(weighted, k, rows, cols)
-    want = stitch.hann_stitch_reference(weighted, k, rows, cols)
+    preds = torch.rand((rows * cols, side, side, c_out), generator=gen).cuda()
+    window = stitch.hann_window_2d(side, "cuda")
+    weighted = (preds * window[..., None]).contiguous()
+    got = stitch.hann_stitch(preds, k, rows, cols, apply_window=True)
+    want = stitch.hann_stitch_reference(preds, k, rows, cols, apply_window=True)
+    got_w = stitch.hann_stitch(weighted, k, rows, cols)
+    want_w = stitch.hann_stitch_reference(weighted, k, rows, cols)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    out = dict(shape=[rows * cols, side, side, c_out], kernel=k,
-               canvas=list(got.shape), max_abs_err=err)
+    out = dict(shape=[rows * cols, side, side, c_out], kernel=k, canvas=list(got.shape),
+               max_abs_err=(got - want).abs().max().item(),
+               weighted_max_abs_err=(got_w - want_w).abs().max().item())
     if timed:
         inv_w = torch.from_numpy(stitch.hann_inverse_weights(rows, cols, k, side)).cuda()
-        lib = fold_blend(weighted, k, rows, cols, inv_w)
+        lib = fold_blend(preds, k, rows, cols, window, inv_w)
         out["library_max_abs_err"] = (lib - want).abs().max().item()
-        out["ms"] = cuda_ms(lambda: stitch.hann_stitch(weighted, k, rows, cols))
-        out["plain_ms"] = cuda_ms(lambda: stitch.hann_stitch_reference(weighted, k, rows, cols))
-        out["library_ms"] = cuda_ms(lambda: fold_blend(weighted, k, rows, cols, inv_w))
-        n_in = weighted.numel() + (rows + 1) * k + (cols + 1) * k  # chips + wy + wx
+
+        def kernel():
+            stitch.hann_stitch(preds, k, rows, cols, apply_window=True)
+
+        def library():
+            fold_blend(preds, k, rows, cols, window, inv_w)
+
+        out["ms"] = cuda_ms(kernel)
+        out["device_ms"] = device_ms(kernel, "hann_stitch_kernel")
+        out["plain_ms"] = cuda_ms(lambda: stitch.hann_stitch_reference(
+            preds, k, rows, cols, apply_window=True), iters=10, warmup=2)
+        out["library_ms"] = cuda_ms(library)
+        out["library_device_ms"] = device_ms(library)
+        # predictions, w1, wy, wx read once; the canvas written once
+        n_in = preds.numel() + side + (rows + 1) * k + (cols + 1) * k
         n_out = got.numel()
-        # one add per chip pixel, then wy*wx, 1/max and the scale per output
+        # per chip pixel the window (w1*w1, p*w) and its add; per output
+        # wy*wx, max, the reciprocal and the scale
         out["bound_ms"], out["bound_by"] = bound((n_in + n_out) * 4,
-                                                 weighted.numel() + 3 * n_out)
+                                                 3 * preds.numel() + 4 * n_out)
     return out
 
 
-def preprocess_case(torch, pre, shape, n_color, augment, gen, timed):
+def nan_aware_err(torch, got, want):
+    """Max |got - want| over the finite pairs; inf if the NaNs differ."""
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return float("inf")
+    both = ~torch.isnan(want)
+    return (got[both] - want[both]).abs().max().item()
+
+
+def preprocess_case(torch, pre, shape, n_color, augment, gen, timed, hard=False):
     """fused_preprocess on the card against its plain version on the same
-    inputs (bands in [0, 0.8], as reflectances are)."""
+    inputs (bands in [0, 0.8], as reflectances are). ``hard`` adds a NaN
+    plane, a chip with negative contrast and one with zero contrast, and
+    runs every rotation and flip over the chips."""
     b, k, _, c = shape
     bands = (torch.rand(shape, generator=gen) * 0.8).cuda()
     draws = (tuple(d.cuda() for d in pre.draw_augment_params(gen, b, n_color))
              if augment else (None, None, None))
+    if hard:
+        contra, bright, morph = draws
+        bands[1, :, :, 2] = float("nan")
+        contra[2] = -contra[2]
+        contra[3, 0] = 0.0
+        idx = torch.arange(b, device="cuda")
+        draws = (contra, bright,
+                 torch.stack([idx % 2, idx // 2 % 2, idx // 4 % 4], 1).to(torch.int32))
     got = pre.fused_preprocess(bands, n_color, *draws, augment=augment)
     want = pre.fused_preprocess_reference(bands, n_color, *draws, augment=augment)
     torch.cuda.synchronize()
-    out = dict(shape=list(shape), n_color=n_color, augment=augment,
-               max_abs_err=(got - want).abs().max().item())
+    out = dict(shape=list(shape), n_color=n_color, augment=augment, hard=hard,
+               max_abs_err=nan_aware_err(torch, got, want))
     if timed:
-        out["ms"] = cuda_ms(lambda: pre.fused_preprocess(bands, n_color, *draws,
-                                                         augment=augment))
+        def kernel():
+            pre.fused_preprocess(bands, n_color, *draws, augment=augment)
+
+        out["ms"] = cuda_ms(kernel)
+        out["device_ms"] = device_ms(kernel, "fused_preprocess_kernel")
         out["plain_ms"] = cuda_ms(lambda: pre.fused_preprocess_reference(
             bands, n_color, *draws, augment=augment), iters=10, warmup=2)
         # each input read once, each output written once; the draws
@@ -242,11 +312,12 @@ def serve_through_cli(torch, predict, stitch, read_geotiff, ckpt, scene_path, ou
 
 
 def device_profile(torch, fn, calls=1):
-    """(wall ms, device ms, busy share, top kernels) of ``calls`` calls of
-    ``fn`` under torch.profiler; device-side events only (kernels, copies,
-    memsets; not the ranges that annotate them, such as the optimizer
-    step's). One stream does the work, so their sum over the wall time is
-    the device's busy share."""
+    """(wall ms, device ms, busy share, top kernels, top host ops) of
+    ``calls`` calls of ``fn`` under torch.profiler; device-side events only
+    for the device (kernels, copies, memsets; not the ranges that annotate
+    them, such as the optimizer step's). One stream does the work, so their
+    sum over the wall time is the device's busy share. Host ops are ranked
+    by their own (self) CPU time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,9 +331,13 @@ def device_profile(torch, fn, calls=1):
            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     dev.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in dev)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     return dict(wall_ms=wall, device_ms=busy if dev else "not measured",
                 device_busy_share=busy / wall if dev else "not measured",
-                top=[{"name": n[:90], "ms": ms, "count": c} for n, ms, c in dev[:12]])
+                top=[{"name": n[:90], "ms": ms, "count": c} for n, ms, c in dev[:12]],
+                host_top=[{"name": n[:90], "self_ms": ms, "count": c}
+                          for n, ms, c in host[:12]])
 
 
 def train_phase(torch, work, gen):
@@ -401,7 +476,8 @@ def train_phase(torch, work, gen):
         fed_chips_per_s=n_fed * batch / fed_s,
         fed_mpix_per_s=n_fed * batch * k * k / 1e6 / fed_s,
         peak_mem_gib=peak_gib, serve_launches=serve_launches, serve_cli_seconds=serve_s)
-    return fields, launches, lambda: trainer.train_step(trainer.state, (x, y))
+    return (fields, launches, lambda: trainer.train_step(trainer.state, (x, y)),
+            lambda: preprocess(raw, draw_gen, train=True))
 
 
 def main():
@@ -418,7 +494,7 @@ def main():
     from satellite_computervision_tpu_torch.kernels import preprocess as pre
     from satellite_computervision_tpu_torch.models import unet_solar
     from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
-    from satellite_computervision_tpu_torch.train.config import SOLAR_CONFIG
+    from satellite_computervision_tpu_torch.train.config import PARKING_CONFIG, SOLAR_CONFIG
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -443,8 +519,12 @@ def main():
     small = stitch_case(torch, stitch, 16, 8, 3, 4, 2, gen, timed=False)
     main_shape = stitch_case(torch, stitch, kernel, buffer, rows, cols, 1, gen, timed=True)
     emit("kernels", name="hann_stitch", small=small, main_path=main_shape)
+    # the engine's route: the same products and adds in the same order, so
+    # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
-    check(small["max_abs_err"] <= tol and main_shape["max_abs_err"] <= tol,
+    check(small["max_abs_err"] == 0.0 and main_shape["max_abs_err"] == 0.0,
+          "hann_stitch(apply_window=True) is not bit-equal to its plain version")
+    check(small["weighted_max_abs_err"] <= tol and main_shape["weighted_max_abs_err"] <= tol,
           f"hann_stitch disagrees with its plain version beyond {tol}")
 
     # fused_preprocess at the training path's shape: a batch of 64 chips,
@@ -456,9 +536,20 @@ def main():
                  for n in (4, 3, 0) for aug in (True, False)]
     pre_path = {("augment" if aug else "eval"): preprocess_case(
         torch, pre, path_shape, n_color, aug, gen, timed=True) for aug in (True, False)}
-    emit("kernels", name="fused_preprocess", small=pre_small, main_path=pre_path)
+    # a NaN plane, negative and zero contrast, every rotation and flip
+    pre_hard = preprocess_case(torch, pre, path_shape, n_color, True, gen, timed=False,
+                               hard=True)
+    # the parking preset's chips (R, G, B + the label at 512²): a CTA's rows
+    # do not fit in shared memory, so the kernel takes its streamed route
+    streamed_shape = (PARKING_CONFIG.batch_size, PARKING_CONFIG.kernel_size,
+                      PARKING_CONFIG.kernel_size, len(PARKING_CONFIG.bands) + 1)
+    pre_streamed = preprocess_case(torch, pre, streamed_shape, len(PARKING_CONFIG.bands),
+                                   True, gen, timed=True)
+    emit("kernels", name="fused_preprocess", small=pre_small, main_path=pre_path,
+         hard=pre_hard, streamed=pre_streamed)
     tol = 1e-5  # min/max exact, the mean summed in another order; outputs in [0, 1]
-    pre_err = max(c["max_abs_err"] for c in pre_small + list(pre_path.values()))
+    pre_err = max(c["max_abs_err"]
+                  for c in pre_small + list(pre_path.values()) + [pre_hard, pre_streamed])
     check(pre_err <= tol, f"fused_preprocess disagrees with its plain version: {pre_err}")
 
     # ---- the solar serving slice, through the CLI a user runs
@@ -529,12 +620,14 @@ def main():
          forward_ms_per_batch=fwd_ms, peak_mem_gib=peak_gib)
 
     # ---- the solar training slice, then its checkpoint served
-    train_fields, train_launches, train_step = train_phase(torch, work, gen)
+    train_fields, train_launches, train_step, train_preprocess = train_phase(torch, work, gen)
     emit("train", **train_fields)
 
     # ---- where a warm scene's and a warm train step's device time goes
     emit("profile", what="scene", **device_profile(torch, run_dev))
     emit("profile", what="train_step", calls=3, **device_profile(torch, train_step, calls=3))
+    emit("profile", what="preprocess", calls=5,
+         **device_profile(torch, train_preprocess, calls=5))
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -542,7 +635,8 @@ def main():
          "source": "satellite_computervision_tpu_torch/csrc/hann_stitch.cu",
          "replaces": "satellite_computervision_tpu/pallas/stitch.py:130",
          "launches": launches["hann_stitch"], "max_abs_err": main_shape["max_abs_err"],
-         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+         "ms": main_shape["ms"], "device_ms": main_shape["device_ms"],
+         "plain_ms": main_shape["plain_ms"],
          "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
          "library_ms": main_shape["library_ms"]},
         {"name": "fused_preprocess", "route": "cuda",
@@ -550,7 +644,8 @@ def main():
          "replaces": "satellite_computervision_tpu/pallas/preprocess.py:135",
          "launches": train_launches["fused_preprocess"],
          "max_abs_err": max(c["max_abs_err"] for c in pre_path.values()),
-         "ms": pre_path["augment"]["ms"], "plain_ms": pre_path["augment"]["plain_ms"],
+         "ms": pre_path["augment"]["ms"], "device_ms": pre_path["augment"]["device_ms"],
+         "plain_ms": pre_path["augment"]["plain_ms"],
          "bound_ms": pre_path["augment"]["bound_ms"],
          "bound_by": pre_path["augment"]["bound_by"], "library_ms": None},
     ]}))

@@ -133,7 +133,6 @@ def make_preprocess_fn(
             res = one_hot_encode(batch[response], response_depth)
         else:
             res = batch[response][..., None]
-        bands = torch.stack([batch[f] for f in continuous], dim=-1)  # (B, K, K, C)
         onehots = [one_hot_encode(batch[name], depth)
                    for name, depth in one_hot.items() if name in features]
 
@@ -141,14 +140,21 @@ def make_preprocess_fn(
         if aug and draws is None:
             if generator is None:
                 raise ValueError("augmenting needs a generator (or explicit draws)")
-            draws = draw_augment_params(generator, bands.shape[0], n_color)
+            draws = draw_augment_params(generator, batch[response].shape[0], n_color)
         contra, bright, morph = draws if aug else (None, None, None)
 
         if fused:
+            # the planes of [bands ‖ one-hots ‖ response] stacked along a
+            # leading axis, then one transpose to channels last: stacking
+            # along the last axis writes 4-byte runs C floats apart and is
+            # ~8x slower on the card (PERF.md)
+            planes = [batch[f] for f in continuous] + [
+                plane for t in onehots + [res] for plane in t.unbind(-1)]
             stacked = fused_preprocess(
-                torch.cat([bands, *onehots, res], dim=-1).contiguous(), n_color,
+                torch.stack(planes).permute(1, 2, 3, 0).contiguous(), n_color,
                 contra, bright, morph, augment=aug)
         else:
+            bands = torch.stack([batch[f] for f in continuous], dim=-1)  # (B, K, K, C)
             if aug:
                 bands = aug_color(bands, contra[:, None, None, :n_color].to(device),
                                   bright[:, None, None, :n_color].to(device))

@@ -9,9 +9,10 @@ Port of ``satellite_computervision_tpu/inference/tiles.py``
   through the model ``batch_size`` at a time;
 - ``blend="overwrite"``/``"sum"``: central crops tile disjointly, so the
   stitch is a reshape/permute;
-- ``blend="hann"``: chips are hann-weighted and blended by
-  ``kernels.stitch.hann_stitch`` — the hand-written CUDA kernel on the
-  card, its plain PyTorch version on the CPU. Requires ``buffer <= kernel``.
+- ``blend="hann"``: the raw chip predictions go to
+  ``kernels.stitch.hann_stitch(..., apply_window=True)``, which weights and
+  blends them in one pass — the hand-written CUDA kernel on the card, its
+  plain PyTorch version on the CPU. Requires ``buffer <= kernel``.
 
 Not ported yet: whole-scene mode, banded streaming (``max_rows``), nodata
 culling, ``predict_scenes`` and ``predict_scene_batch``.
@@ -29,14 +30,7 @@ from satellite_computervision_tpu_torch.geo.geotiff import (
     GeoTiffStreamWriter,
     coerce_sample_dtype,
 )
-from satellite_computervision_tpu_torch.kernels.stitch import hann_stitch, hann_window_1d
-
-
-def _hann_window(side: int, device) -> torch.Tensor:
-    # 1-D profile shared with the blend normalizer (kernels.stitch divides
-    # this exact window back out — do not fork the formula)
-    w1 = torch.from_numpy(hann_window_1d(side)).to(device)
-    return w1[:, None] * w1[None, :]
+from satellite_computervision_tpu_torch.kernels.stitch import hann_stitch
 
 
 class TiledInferenceEngine:
@@ -167,8 +161,7 @@ class TiledInferenceEngine:
             if self.index_mode == "grid":
                 return region[:h, :w]
         else:
-            weighted = preds * _hann_window(k + self.buffer, preds.device)[..., None]
-            blended = hann_stitch(weighted.contiguous(), k, rows, cols)
+            blended = hann_stitch(preds.contiguous(), k, rows, cols, apply_window=True)
             if self.index_mode == "grid":
                 # canvas origin == padded-scene origin, (half, half) before
                 # original pixel (0, 0)

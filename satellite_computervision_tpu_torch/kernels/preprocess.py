@@ -7,13 +7,18 @@ and min/max rescaled per channel (axes (0, 1)); the trailing channels
 (one-hot features, labels) pass through; when augmenting, every channel of
 a chip shares its flip-v / flip-h / rot90.
 
-- On a CUDA tensor :func:`fused_preprocess` launches the hand-written
-  kernel in ``csrc/fused_preprocess.cu`` (built by ``kernels/_build.py``)
-  or raises. It reads the stack NHWC as the pipeline builds it and writes
-  the morph through the store index.
+- On a CUDA tensor :func:`fused_preprocess` makes one launch of the
+  hand-written kernel in ``csrc/fused_preprocess.cu`` (built by
+  ``kernels/_build.py``; a thread-block cluster per chip) or raises. It
+  reads the stack NHWC as the pipeline builds it and writes the morph
+  through the store index.
 - On a CPU tensor it runs :func:`fused_preprocess_reference`, the plain
   PyTorch version, which the tests hold against the JAX package and
   ``chip_smoke.py`` holds the kernel against on the card.
+- :func:`fused_preprocess_stats_reference` is the kernel's algebra in plain
+  PyTorch (the raw per-plane sum, min and max, then the recolored extrema
+  through the sign of ``contra``); the CPU tests hold it against the plain
+  version. Nothing on the main path calls it.
 
 The draws come from :func:`draw_augment_params` on an explicit generator
 and are passed in: torch's draws never equal JAX's, so the tests inject
@@ -23,14 +28,12 @@ the JAX package's ``draw_augment_params`` instead.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from satellite_computervision_tpu_torch.ops.augment import apply_morph
-
-# blocks per chip: 64 chips x 16 tiles = 1024 blocks over 132 SMs
-TILES = 16
 
 
 def draw_augment_params(generator: Optional[torch.Generator], batch: int, channels: int,
@@ -68,6 +71,19 @@ def _check(bands: torch.Tensor, n_color, augment, contra, bright, morph) -> int:
     return n_color
 
 
+def _rescale_and_morph(x: torch.Tensor, col: torch.Tensor, lo, hi, n_color: int,
+                       morph, augment: bool) -> torch.Tensor:
+    out = torch.cat([(col - lo) / (hi - lo + 1e-8), x[..., n_color:]], dim=-1)
+    if augment:
+        out = torch.stack([apply_morph(chip, *m) for chip, m in zip(out, morph.tolist())])
+    return out
+
+
+def _recolor_params(contra, bright, n_color: int, device):
+    return tuple(p[:, :n_color].to(device, torch.float32)[:, None, None, :]
+                 for p in (contra, bright))
+
+
 def fused_preprocess_reference(bands: torch.Tensor, n_color: Optional[int] = None,
                                contra=None, bright=None, morph=None,
                                augment: bool = True) -> torch.Tensor:
@@ -79,15 +95,86 @@ def fused_preprocess_reference(bands: torch.Tensor, n_color: Optional[int] = Non
     col = x[..., :n_color]
     if augment:
         mean = col.mean(dim=(1, 2), keepdim=True)
-        ct = contra[:, :n_color].to(x.device, torch.float32)[:, None, None, :]
-        br = bright[:, :n_color].to(x.device, torch.float32)[:, None, None, :]
+        ct, br = _recolor_params(contra, bright, n_color, x.device)
         col = (col - mean) * ct + mean * br
     lo = col.amin(dim=(1, 2), keepdim=True)
     hi = col.amax(dim=(1, 2), keepdim=True)
-    out = torch.cat([(col - lo) / (hi - lo + 1e-8), x[..., n_color:]], dim=-1)
+    return _rescale_and_morph(x, col, lo, hi, n_color, morph, augment)
+
+
+def recolored_extrema(vmin, vmax, mean, contra, bright):
+    """(lo, hi) of the recolored plane ``(v - mean)*contra + mean*bright``
+    from the raw plane's ``vmin`` and ``vmax``.
+
+    Each step of the recolor is monotone in v and float rounding is
+    monotone, so the recolor is non-decreasing for ``contra >= 0`` and
+    non-increasing for ``contra < 0``: its extrema are the recolored raw
+    extrema, swapped where ``contra < 0`` (for ``contra == 0`` both are
+    ``mean*bright``). Where an infinity makes a recolored value NaN
+    (``inf - inf``, ``inf * 0``), it does so at an extreme of v; the plane
+    then holds a NaN and both extrema are NaN, as ``amin``/``amax`` give.
+    Arguments broadcast together."""
+    at_min = (vmin - mean) * contra + mean * bright
+    at_max = (vmax - mean) * contra + mean * bright
+    neg = contra < 0
+    lo, hi = torch.where(neg, at_max, at_min), torch.where(neg, at_min, at_max)
+    nan = torch.isnan(at_min) | torch.isnan(at_max)
+    return lo.masked_fill(nan, float("nan")), hi.masked_fill(nan, float("nan"))
+
+
+def fused_preprocess_stats_reference(bands: torch.Tensor, n_color: Optional[int] = None,
+                                     contra=None, bright=None, morph=None,
+                                     augment: bool = True) -> torch.Tensor:
+    """The kernel's algebra in plain PyTorch: the raw (sum, min, max) of
+    each chip's color planes, the mean as sum / K², the recolored extrema
+    from :func:`recolored_extrema`, then the rescale and ``apply_morph``.
+    Equal to :func:`fused_preprocess_reference` up to the order of the
+    mean's sum; held against it by the CPU tests."""
+    n_color = _check(bands, n_color, augment, contra, bright, morph)
+    x = bands.float()
+    col = x[..., :n_color]
+    lo = col.amin(dim=(1, 2), keepdim=True)
+    hi = col.amax(dim=(1, 2), keepdim=True)
     if augment:
-        out = torch.stack([apply_morph(chip, *m) for chip, m in zip(out, morph.tolist())])
-    return out
+        mean = col.sum(dim=(1, 2), keepdim=True) / (col.shape[1] * col.shape[2])
+        ct, br = _recolor_params(contra, bright, n_color, x.device)
+        lo, hi = recolored_extrema(lo, hi, mean, ct, br)
+        col = (col - mean) * ct + mean * br
+    return _rescale_and_morph(x, col, lo, hi, n_color, morph, augment)
+
+
+def _device_draws(contra, bright, morph, device) -> Tuple[torch.Tensor, ...]:
+    """``contra``, ``bright`` (B, S) float32 and ``morph`` (B, 3) int32 on
+    ``device``. Draws on the host go as one packed pinned buffer of 32-bit
+    words in one ``non_blocking`` copy (pageable copies would each
+    synchronise the stream); draws already on the device are used as they
+    are."""
+    contra = contra.to(dtype=torch.float32).contiguous()
+    bright = bright.to(dtype=torch.float32).contiguous()
+    morph = morph.to(dtype=torch.int32).contiguous()
+    if bright.shape[1] != contra.shape[1]:
+        raise ValueError("contra and bright must have the same width")
+    if all(t.device == device for t in (contra, bright, morph)):
+        return contra, bright, morph
+    words = [t.cpu().view(torch.int32).reshape(-1) for t in (contra, bright, morph)]
+    host = torch.empty(sum(w.numel() for w in words), dtype=torch.int32, pin_memory=True)
+    torch.cat(words, out=host)
+    packed = host.to(device, non_blocking=True)
+    n = contra.numel()
+    return (packed[:n].view(torch.float32).view(contra.shape),
+            packed[n:2 * n].view(torch.float32).view(bright.shape),
+            packed[2 * n:].view(morph.shape))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and loaded at the first call."""
+    from satellite_computervision_tpu_torch.kernels import _build
+
+    fn = _build.load("fused_preprocess").fused_preprocess_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def fused_preprocess(bands: torch.Tensor, n_color: Optional[int] = None,
@@ -101,8 +188,8 @@ def fused_preprocess(bands: torch.Tensor, n_color: Optional[int] = None,
     (B, >= n_color) and ``morph`` (B, 3) are the draws of
     :func:`draw_augment_params`; ``augment=True`` without them raises.
 
-    CUDA tensors go through the hand-written kernel (each call adds one to
-    ``fused_preprocess.launches``); CPU tensors through
+    CUDA tensors go through one launch of the hand-written kernel (each
+    call adds one to ``fused_preprocess.launches``); CPU tensors through
     :func:`fused_preprocess_reference`."""
     n_color = _check(bands, n_color, augment, contra, bright, morph)
     if bands.device.type == "cpu":
@@ -116,29 +203,20 @@ def fused_preprocess(bands: torch.Tensor, n_color: Optional[int] = None,
     b, k, _, c = bands.shape
     if c > 1024:
         raise ValueError("fused_preprocess: at most 1024 channels")
-    from satellite_computervision_tpu_torch.kernels import _build
-
-    lib = _build.load("fused_preprocess")
-    fn = lib.fused_preprocess_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if b > 65535 or k * k * c >= 2**31:
+        raise ValueError("fused_preprocess: at most 65535 chips of < 2**31 floats each")
+    fn = _entry()
     dev = bands.device
     if augment:
-        contra = contra.to(dev, torch.float32).contiguous()
-        bright = bright.to(dev, torch.float32).contiguous()
-        morph = morph.to(dev, torch.int32).contiguous()
-        params = (contra.data_ptr(), bright.data_ptr(), morph.data_ptr())
-        stride = contra.shape[1]
-        if bright.shape[1] != stride:
-            raise ValueError("contra and bright must have the same width")
+        draws = _device_draws(contra, bright, morph, dev)
+        params, stride = tuple(d.data_ptr() for d in draws), draws[0].shape[1]
     else:
         params, stride = (None, None, None), 0
     out = torch.empty_like(bands)
-    scratch = torch.empty(3 * b * TILES * c, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(bands.data_ptr(), *params, out.data_ptr(), scratch.data_ptr(),
-                 b, k, c, n_color, int(augment), TILES, stride, stream)
+        err = fn(bands.data_ptr(), *params, out.data_ptr(), b, k, c, n_color,
+                 int(augment), stride, stream)
     if err != 0:
         raise RuntimeError(f"fused_preprocess kernel launch failed (cudaError {err})")
     fused_preprocess.launches += 1

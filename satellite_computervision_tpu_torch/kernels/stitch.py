@@ -4,7 +4,9 @@ Port of ``satellite_computervision_tpu/pallas/stitch.py``. The engine's
 overlap-tile blend (inference/tiles.py) stitches hann-weighted chips on a
 stride-``kernel`` grid where every output pixel sums up to 4 overlapping
 chips, then normalizes by the (input-independent, separable) hann weight
-sum.
+sum. With ``apply_window=True`` the chips arrive unweighted and the window
+is applied inside the same pass (the engine's route); without it they
+arrive hann-weighted (the TPU kernel's function).
 
 - On a CUDA tensor :func:`hann_stitch` launches the hand-written kernel in
   ``csrc/hann_stitch.cu`` (built by ``kernels/_build.py``) or raises.
@@ -27,9 +29,9 @@ def hann_window_1d(side: int) -> np.ndarray:
     """The engine's 1-D hann edge profile (float32, clipped away from 0).
 
     Single source of truth: the 2-D chip weight is the outer product of
-    this (inference/tiles.py multiplies it in) and the blend normalizer
-    below divides it back out — both must come from here or hann output
-    is silently mis-scaled."""
+    this (``hann_stitch(..., apply_window=True)`` multiplies it in) and the
+    blend normalizer below divides it back out — both must come from here
+    or hann output is silently mis-scaled."""
     n1 = np.arange(side, dtype=np.float32)
     return np.sqrt(
         np.clip(0.5 - 0.5 * np.cos(2.0 * np.pi * (n1 + 0.5) / side), 1e-4, None)
@@ -57,28 +59,39 @@ def hann_inverse_weights(rows: int, cols: int, kernel: int, side: int) -> np.nda
     return 1.0 / np.maximum(wy[:, None] * wx[None, :], 1e-8)
 
 
-def _check(weighted: torch.Tensor, kernel: int, rows: int, cols: int) -> int:
-    if weighted.dim() != 4:
-        raise ValueError("weighted must be (rows*cols, side, side, c_out)")
-    n, side, side2, _ = weighted.shape
+def hann_window_2d(side: int, device) -> torch.Tensor:
+    """The (side, side) chip weight: the outer product of
+    :func:`hann_window_1d`, in float32 on ``device``."""
+    w1 = torch.from_numpy(hann_window_1d(side)).to(device)
+    return w1[:, None] * w1[None, :]
+
+
+def _check(chips: torch.Tensor, kernel: int, rows: int, cols: int) -> int:
+    if chips.dim() != 4:
+        raise ValueError("chips must be (rows*cols, side, side, c_out)")
+    n, side, side2, _ = chips.shape
     if side != side2 or n != rows * cols:
-        raise ValueError("weighted must be (rows*cols, side, side, c_out)")
+        raise ValueError("chips must be (rows*cols, side, side, c_out)")
     if side > 2 * kernel:
         raise ValueError("hann stitching requires side <= 2*kernel")
     return side
 
 
-def hann_stitch_reference(weighted: torch.Tensor, kernel: int, rows: int,
-                          cols: int) -> torch.Tensor:
-    """Plain PyTorch version: each weighted chip, padded to a (2k, 2k)
-    block, splits into four (k, k) quadrants that land on the kernel grid;
-    the blend is 4 shifted adds of reshape-stitched quadrant grids, times
-    the constant inverse weight canvas. Runs on any device."""
-    side = _check(weighted, kernel, rows, cols)
+def hann_stitch_reference(chips: torch.Tensor, kernel: int, rows: int, cols: int,
+                          apply_window: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: with ``apply_window`` the chips are first
+    multiplied by :func:`hann_window_2d`; each weighted chip, padded to a
+    (2k, 2k) block, splits into four (k, k) quadrants that land on the
+    kernel grid; the blend is 4 shifted adds of reshape-stitched quadrant
+    grids, times the constant inverse weight canvas. Runs on any device."""
+    side = _check(chips, kernel, rows, cols)
     k = kernel
-    c_out = weighted.shape[-1]
+    c_out = chips.shape[-1]
     canvas_h, canvas_w = (rows + 1) * k, (cols + 1) * k
-    blocks = weighted.float().reshape(rows, cols, side, side, c_out)
+    weighted = chips.float()
+    if apply_window:
+        weighted = weighted * hann_window_2d(side, chips.device)[..., None]
+    blocks = weighted.reshape(rows, cols, side, side, c_out)
     blocks = F.pad(blocks, (0, 0, 0, 2 * k - side, 0, 2 * k - side))
     quads = (
         blocks.reshape(rows, cols, 2, k, 2, k, c_out)
@@ -86,7 +99,7 @@ def hann_stitch_reference(weighted: torch.Tensor, kernel: int, rows: int,
         .reshape(2, 2, rows * k, cols * k, c_out)
     )
     acc = torch.zeros((canvas_h, canvas_w, c_out), dtype=torch.float32,
-                      device=weighted.device)
+                      device=chips.device)
     for a in (0, 1):
         for b in (0, 1):
             acc = acc + F.pad(
@@ -95,7 +108,7 @@ def hann_stitch_reference(weighted: torch.Tensor, kernel: int, rows: int,
                  a * k, canvas_h - rows * k - a * k),
             )
     inv_w = torch.from_numpy(hann_inverse_weights(rows, cols, k, side))
-    return acc * inv_w.to(weighted.device)[..., None]
+    return acc * inv_w.to(chips.device)[..., None]
 
 
 @functools.lru_cache(maxsize=16)
@@ -109,41 +122,55 @@ def _device_axis_weights(rows: int, cols: int, kernel: int, side: int,
     )
 
 
-def hann_stitch(weighted: torch.Tensor, kernel: int, rows: int,
-                cols: int) -> torch.Tensor:
-    """Assemble hann-weighted chips into the normalized blended canvas.
+@functools.lru_cache(maxsize=16)
+def _device_window_1d(side: int, device: torch.device) -> torch.Tensor:
+    """:func:`hann_window_1d` on ``device``, cached like the axis sums."""
+    return torch.from_numpy(hann_window_1d(side)).to(device)
 
-    ``weighted``: (rows*cols, side, side, c_out) float32, contiguous,
-    hann-weighted chip predictions on the stride-``kernel`` grid (chip
-    (r, c) at canvas (r*k, c*k)). Returns (canvas_h, canvas_w, c_out)
-    float32 with canvas_h = (rows+1)*k.
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and loaded at the first call."""
+    from satellite_computervision_tpu_torch.kernels import _build
+
+    fn = _build.load("hann_stitch").hann_stitch_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def hann_stitch(chips: torch.Tensor, kernel: int, rows: int, cols: int,
+                apply_window: bool = False) -> torch.Tensor:
+    """Assemble chips into the normalized blended canvas.
+
+    ``chips``: (rows*cols, side, side, c_out) float32, contiguous, chip
+    predictions on the stride-``kernel`` grid (chip (r, c) at canvas
+    (r*k, c*k)): hann-weighted, or raw with ``apply_window=True`` (the
+    kernel then weights each pixel by ``w1[sy] * w1[sx]`` itself). Returns
+    (canvas_h, canvas_w, c_out) float32 with canvas_h = (rows+1)*k.
 
     CUDA tensors go through the hand-written kernel (each launch adds one
     to ``hann_stitch.launches``); CPU tensors through
     :func:`hann_stitch_reference`."""
-    side = _check(weighted, kernel, rows, cols)
-    if weighted.device.type == "cpu":
-        return hann_stitch_reference(weighted, kernel, rows, cols)
-    if weighted.device.type != "cuda":
-        raise ValueError(f"hann_stitch: unsupported device {weighted.device}")
-    if weighted.dtype != torch.float32:
-        raise ValueError(f"hann_stitch: float32 input required, got {weighted.dtype}")
-    if not weighted.is_contiguous():
+    side = _check(chips, kernel, rows, cols)
+    if chips.device.type == "cpu":
+        return hann_stitch_reference(chips, kernel, rows, cols, apply_window)
+    if chips.device.type != "cuda":
+        raise ValueError(f"hann_stitch: unsupported device {chips.device}")
+    if chips.dtype != torch.float32:
+        raise ValueError(f"hann_stitch: float32 input required, got {chips.dtype}")
+    if not chips.is_contiguous():
         raise ValueError("hann_stitch: input must be contiguous")
-    from satellite_computervision_tpu_torch.kernels import _build
-
-    lib = _build.load("hann_stitch")
-    fn = lib.hann_stitch_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    c_out = weighted.shape[-1]
-    wy, wx = _device_axis_weights(rows, cols, kernel, side, weighted.device)
+    fn = _entry()
+    c_out = chips.shape[-1]
+    wy, wx = _device_axis_weights(rows, cols, kernel, side, chips.device)
+    w1 = _device_window_1d(side, chips.device)
     out = torch.empty(((rows + 1) * kernel, (cols + 1) * kernel, c_out),
-                      dtype=torch.float32, device=weighted.device)
-    with torch.cuda.device(weighted.device):
+                      dtype=torch.float32, device=chips.device)
+    with torch.cuda.device(chips.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(weighted.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-                 out.data_ptr(), rows, cols, kernel, side, c_out, stream)
+        err = fn(chips.data_ptr(), w1.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+                 out.data_ptr(), rows, cols, kernel, side, c_out, int(apply_window), stream)
     if err != 0:
         raise RuntimeError(f"hann_stitch kernel launch failed (cudaError {err})")
     hann_stitch.launches += 1

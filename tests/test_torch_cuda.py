@@ -49,6 +49,28 @@ def test_hann_stitch_kernel_matches_plain(cuda, k, buf, rows, cols, c_out):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("apply_window", [False, True], ids=["weighted", "window"])
+@pytest.mark.parametrize("k,buf,rows,cols,c_out", [
+    (16, 8, 3, 4, 2),     # side < 2k, C = 2
+    (16, 16, 3, 4, 1),    # side == 2k
+    (15, 6, 2, 3, 1),     # k*C not a multiple of 4: the scalar path
+    (16, 8, 1, 1, 3),     # one chip; k*C a multiple of 4, side*C not
+    (512, 128, 4, 4, 1),  # the solar serving shape
+])
+def test_hann_stitch_kernel_bit_equal(cuda, k, buf, rows, cols, c_out, apply_window):
+    side = k + buf
+    rng = np.random.default_rng(k + rows + c_out)
+    chips = torch.from_numpy(
+        rng.normal(size=(rows * cols, side, side, c_out)).astype(np.float32)).to(cuda)
+    before = stitch.hann_stitch.launches
+    got = stitch.hann_stitch(chips, k, rows, cols, apply_window=apply_window)
+    torch.cuda.synchronize()
+    assert stitch.hann_stitch.launches == before + 1
+    want = stitch.hann_stitch_reference(chips, k, rows, cols, apply_window=apply_window)
+    # the same products and adds, each rounded on its own, in the same order
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_hann_stitch_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.zeros((12, 24, 24, 1), device=cuda)
     with pytest.raises(ValueError):
@@ -76,6 +98,100 @@ def test_fused_preprocess_kernel_matches_plain(cuda, b, k, c, n_color, augment):
     want = preprocess.fused_preprocess_reference(bands, n_color, *draws, augment=augment)
     # min/max exact, the mean summed in another order: outputs in [0, 1]
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _explicit_draws(b, n_color, seed, morphs=None):
+    gen = torch.Generator().manual_seed(seed)
+    contra, bright, morph = preprocess.draw_augment_params(gen, b, max(n_color, 1))
+    if morphs is not None:
+        morph = torch.tensor(morphs, dtype=torch.int32).reshape(b, 3)
+    return contra, bright, morph
+
+
+def _check_against_plain(cuda, bands, n_color, draws, augment=True):
+    before = preprocess.fused_preprocess.launches
+    got = preprocess.fused_preprocess(bands, n_color, *draws, augment=augment)
+    torch.cuda.synchronize()
+    assert preprocess.fused_preprocess.launches == before + 1  # one call, one launch
+    want = preprocess.fused_preprocess_reference(bands, n_color, *draws, augment=augment)
+    # min/max exact, the mean summed in another order: outputs in [0, 1]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5, equal_nan=True)
+    return got
+
+
+def _unaligned(bands):
+    """A contiguous copy of ``bands`` whose data starts 4 bytes past a
+    16-byte boundary: the kernel then takes its streamed route with scalar
+    loads, whatever the shape."""
+    flat = torch.empty(bands.numel() + 1, dtype=bands.dtype, device=bands.device)
+    out = flat[1:].view(bands.shape)
+    out.copy_(bands)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("shape,layout", [
+    ((16, 40, 40, 7), "aligned"),     # rows fit in shared memory: resident
+    ((16, 40, 40, 7), "unaligned"),   # streamed, scalar loads
+    ((16, 296, 296, 8), "aligned"),   # rows do not fit: streamed, 16-byte loads
+])
+def test_fused_preprocess_kernel_every_morph(cuda, shape, layout):
+    """All 16 (flip_v, flip_h, rot90) morphs, one per chip, on a K that
+    leaves partial tiles, on each of the kernel's routes."""
+    morphs = [(fv, fh, r) for fv in (0, 1) for fh in (0, 1) for r in range(4)]
+    gen = torch.Generator().manual_seed(3)
+    bands = (torch.rand(shape, generator=gen) * 3000.0).to(cuda)
+    if layout == "unaligned":
+        bands = _unaligned(bands)
+    _check_against_plain(cuda, bands, 6, _explicit_draws(16, 6, 3, morphs))
+
+
+@pytest.mark.parametrize("k", [5, 17, 33, 250])
+@pytest.mark.parametrize("c", [1, 7, 9, 64, 300])
+def test_fused_preprocess_kernel_ragged_shapes(cuda, k, c):
+    """Ragged K (CTAs with no rows at K = 5, partial tiles) against every
+    channel count the staging meets: 1, one chunk, a chunk and a remainder,
+    many chunks, more channels than 256 threads. K*C % 4 != 0 takes the
+    streamed route with scalar loads, C = 64 and 300 at K = 250 the
+    streamed route with 16-byte loads, the rest the resident route."""
+    gen = torch.Generator().manual_seed(k * c)
+    b = 2
+    bands = (torch.rand((b, k, k, c), generator=gen) * 3000.0).to(cuda)
+    n_color = max(c - 1, 1)
+    morphs = [(1, 0, 1), (0, 1, 3)]
+    _check_against_plain(cuda, bands, n_color, _explicit_draws(b, n_color, k, morphs))
+    _check_against_plain(cuda, bands, n_color, (None,) * 3, augment=False)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+def test_fused_preprocess_kernel_negative_contra_and_nan_plane(cuda, layout):
+    """A negative contra swaps the recolored extrema; a NaN plane, or a -inf
+    pixel under a negative contra (inf - inf in the recolor), rescales to
+    NaN and leaves the other planes alone. B = 1 and B = 4, on the resident
+    and the streamed route."""
+    gen = torch.Generator().manual_seed(11)
+    bands = (torch.rand((4, 64, 64, 7), generator=gen) * 3000.0).to(cuda)
+    bands[2, 10, 20, 3] = float("nan")
+    bands[1, 5, 5, 4] = float("-inf")
+    if layout == "unaligned":
+        bands = _unaligned(bands)
+    contra, bright, morph = _explicit_draws(4, 6, 11, [(0, 0, 0), (1, 1, 1), (0, 1, 2), (1, 0, 3)])
+    contra[1] = -contra[1]
+    contra[3, 2] = 0.0
+    got = _check_against_plain(cuda, bands, 6, (contra, bright, morph))
+    assert torch.isnan(got[2, ..., 3]).all() and torch.isnan(got[1, ..., 4]).all()
+    assert not torch.isnan(got[[0, 3]]).any()
+    assert not torch.isnan(got[1, ..., [0, 1, 2, 3, 5, 6]]).any()
+    _check_against_plain(cuda, bands[1:2].contiguous(), 6, (contra[1:2], bright[1:2], morph[1:2]))
+
+
+def test_fused_preprocess_kernel_takes_draws_on_either_device(cuda):
+    gen = torch.Generator().manual_seed(5)
+    bands = torch.rand((3, 32, 32, 4), generator=gen).to(cuda)
+    draws = _explicit_draws(3, 4, 5, [(1, 0, 1), (0, 0, 2), (1, 1, 3)])
+    host = preprocess.fused_preprocess(bands, 4, *draws)
+    dev = preprocess.fused_preprocess(bands, 4, *(d.to(cuda) for d in draws))
+    torch.testing.assert_close(host, dev, rtol=0, atol=0)
 
 
 def test_fused_preprocess_kernel_propagates_nan(cuda):

@@ -73,3 +73,39 @@ def test_hann_stitch_cpu_runs_plain_version(rng):
 def test_hann_stitch_rejects_bad_shapes(shape, kernel, rows, cols):
     with pytest.raises(ValueError):
         stitch.hann_stitch(torch.zeros(shape), kernel, rows, cols)
+
+
+@pytest.mark.parametrize("side", [24, 32, 640])
+def test_hann_window_2d_is_the_jax_engine_window(side):
+    """The window the kernel applies is the JAX engine's chip weight, bit for
+    bit (inference/tiles.py::_hann_window there)."""
+    from satellite_computervision_tpu.inference.tiles import _hann_window
+
+    np.testing.assert_array_equal(stitch.hann_window_2d(side, "cpu").numpy(),
+                                  np.asarray(_hann_window(side)))
+
+
+@pytest.mark.parametrize("k,buf,rows,cols,c_out", [
+    (16, 8, 3, 4, 2),   # side < 2k
+    (16, 16, 2, 3, 1),  # side == 2k
+    (15, 6, 1, 1, 1),   # one chip, k*C not a multiple of 4
+    (15, 6, 2, 3, 1),   # a grid, k*C not a multiple of 4 (the card's scalar path)
+    (16, 8, 1, 1, 3),   # one chip, C = 3: k*C a multiple of 4, side*C not
+])
+def test_apply_window_equals_weighting_first(rng, k, buf, rows, cols, c_out):
+    """``apply_window=True`` on raw predictions is the engine's old two-step
+    route (multiply by the window, then stitch) bit for bit, on the plain
+    version and through the wrapper; and it matches the JAX package's
+    weighting + Pallas stitch at the JAX test's tolerance."""
+    side = k + buf
+    preds = rng.uniform(size=(rows * cols, side, side, c_out)).astype(np.float32)
+    p = torch.from_numpy(preds)
+    weighted = p * stitch.hann_window_2d(side, "cpu")[..., None]
+    want = stitch.hann_stitch_reference(weighted, k, rows, cols)
+    for got in (stitch.hann_stitch_reference(p, k, rows, cols, apply_window=True),
+                stitch.hann_stitch(p, k, rows, cols, apply_window=True)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    jax_weighted = preds * (jax_stitch.hann_window_1d(side)[:, None]
+                            * jax_stitch.hann_window_1d(side)[None, :])[..., None]
+    jax_out = np.asarray(jax_stitch.hann_stitch(jax_weighted, k, rows, cols, interpret=True))
+    np.testing.assert_allclose(want.numpy(), jax_out, rtol=1e-5, atol=1e-6)
