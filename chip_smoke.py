@@ -15,7 +15,9 @@ line):
    kernel, bit-equal, and on pre-weighted chips; ``fused_preprocess`` also
    with a NaN plane, negative and zero contrast and every flip/rotation,
    and at the parking preset's 16 x 512² x 4 chips, whose rows do not fit
-   in shared memory: the kernel's streamed route). ``ms``, ``plain_ms``
+   in shared memory: the kernel's streamed route; ``hann_stitch`` also at
+   the swath's band shapes, the culled chips' predictions zero). ``ms``,
+   ``plain_ms``
    and ``library_ms`` are on one clock: CUDA events around back-to-back
    calls, host overhead included. ``device_ms`` beside them is the
    kernel's own device time (``torch.profiler``). Then the card's bound.
@@ -25,7 +27,23 @@ line):
    random weights, GeoTIFF out and read back — with every kernel's launch
    count taken over that run; then one chip's float32 forward on the card
    (TF32 off) against the CPU, and the warm scene time.
-5. ``train``: the solar training path at full ``SOLAR_CONFIG`` width —
+5. ``swath``: a 10980 x 2560 x 6 float32 GeoTIFF (a Sentinel-2 tile's
+   height, 5 chips wide) with a nodata tag of 0 and a nodata edge (top
+   2700 rows, left 640 columns) through the ``predict`` CLI read lazily,
+   banded (``--max-rows 2688``), culled, written as a uint8 COG with
+   predictor 2; ``hann_stitch`` launches against the bands holding a kept
+   chip (from ``chip_validity``); the output's dtype, shape, georeferencing,
+   nodata tag, overview and culled zeros; then the engine API banded +
+   culled against one unbanded, unculled run on the valid pixels, with
+   forwards counted and peak device memory.
+6. ``sweep``: four 1920² x 6 ``.npy`` scenes (one half nodata) through
+   ``predict sweep --prefetch 2 --nodata 0``, every output against
+   ``engine.predict_scene``; the engine's pipelined ``predict_scenes``
+   (readback) beside a serial ``predict_scene`` loop from host memory.
+   ``whole``: ``--tile-mode whole`` on the slice's scene, its time and peak
+   memory. ``patches``: an EE-style export (GZIP TFRecord patches +
+   ``mixer.json``) through ``predict patches``.
+7. ``train``: the solar training path at full ``SOLAR_CONFIG`` width —
    synthetic EE-schema GZIP TFRecords (6 bands, 256², bright squares on
    noise) -> ``get_training_dataset`` -> ``make_preprocess_fn(axes=(0,
    1))`` (the CUDA ``fused_preprocess``) -> ``Trainer`` (batch 64, S2D,
@@ -35,7 +53,7 @@ line):
    the CPU from the same init and batch; warm step, preprocess and fed
    (host pipeline included) times; then the trained ``best`` checkpoint
    served through the ``predict`` CLI.
-6. ``profile``: one warm scene, three warm train steps and five warm
+8. ``profile``: one warm scene, three warm train steps and five warm
    ``make_preprocess_fn`` calls under ``torch.profiler``: device time by
    kernel, host time by op and the device's busy share.
 
@@ -57,6 +75,10 @@ import numpy as np
 
 SEED = 0
 SCENE = (1920, 1920, 6)
+# a Sentinel-2 tile's full height at 10 m, a strip 5 chips wide; nodata
+# (0) in the top rows and left columns, as at a swath edge
+SWATH, SWATH_EDGE, SWATH_MAX_ROWS = (10980, 2560, 6), (2700, 640), 2688
+SWEEP_SCENES = 4
 TRAIN_STEPS, TRAIN_EPOCHS = 3, 2  # steps per epoch; an eval ends each epoch
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -154,12 +176,16 @@ def fold_blend(preds, k, rows, cols, window, inv_w):
     return canvas[0].permute(1, 2, 0) * inv_w[..., None]
 
 
-def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed):
+def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed, culled_rows=0):
     """hann_stitch on the card against its plain version: the engine's
     route (raw predictions, ``apply_window=True``: bit-equal) and the TPU
-    kernel's (pre-weighted chips); the engine's route timed."""
+    kernel's (pre-weighted chips); the engine's route timed. The chips of
+    the first ``culled_rows`` grid rows are zero, as culled chips reach the
+    stitch."""
     side = k + buf
-    preds = torch.rand((rows * cols, side, side, c_out), generator=gen).cuda()
+    preds = torch.rand((rows * cols, side, side, c_out), generator=gen)
+    preds[: culled_rows * cols] = 0.0
+    preds = preds.cuda()
     window = stitch.hann_window_2d(side, "cuda")
     weighted = (preds * window[..., None]).contiguous()
     got = stitch.hann_stitch(preds, k, rows, cols, apply_window=True)
@@ -309,6 +335,327 @@ def serve_through_cli(torch, predict, stitch, read_geotiff, ckpt, scene_path, ou
     check(pred.min() >= 0.0 and pred.max() <= 1.0, "probabilities outside [0, 1]")
     check(meta.get("crs") == "EPSG:32617", f"crs lost: {meta}")
     return pred, launches, cli_s
+
+
+def run_cli(predict, argv):
+    """``predict.main(argv)``, its standard output captured and echoed to
+    standard error; returns (result, output text, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = predict.main(argv)
+    seconds = time.perf_counter() - t0
+    print(buf.getvalue(), file=sys.stderr, end="", flush=True)
+    return result, buf.getvalue(), seconds
+
+
+def band_chip_rows(rows_total, max_rows, kernel, buffer):
+    """Chip-row ranges [lo, hi) of the hann bands of a grid ``rows_total``
+    chip rows tall: ``max_rows`` holds (max_rows - buffer) // kernel chip
+    rows, one halo chip row on each interior side (the JAX engine's
+    geometry, ``inference/tiles.py:803-808``)."""
+    band_rows = (max_rows - buffer) // kernel
+    step = max(1, band_rows - 2)
+    out, r0 = [], 0
+    while r0 < rows_total:
+        rb = min(step, rows_total - r0)
+        out.append((r0 - min(1, r0), r0 + rb + min(1, rows_total - r0 - rb)))
+        r0 += rb
+    return out
+
+
+class CountingForward:
+    """A predict_fn that counts the chips (batch rows) it is given."""
+
+    def __init__(self, fn):
+        self.fn, self.chips = fn, 0
+
+    def __call__(self, chips):
+        self.chips += chips.shape[0]
+        return self.fn(chips)
+
+
+def swath_phase(torch, predict, stitch, ckpt, work, shape, edge_rows, edge_cols, max_rows,
+                geometry, extra_flags=(), seed=SEED, device="cuda"):
+    """The swath path: a tall float32 GeoTIFF with a nodata tag of 0 and a
+    nodata swath edge (top ``edge_rows`` rows, left ``edge_cols`` columns),
+    served through the ``predict`` CLI banded, culled, as a uint8 COG, read
+    lazily; then the engine API banded + culled against one unbanded,
+    unculled run on the valid pixels, with peak device memory and forward
+    counts. Returns (phase fields, hann_stitch launches of the CLI run)."""
+    from satellite_computervision_tpu_torch.geo import GeoTiffScene, GeoTiffStreamWriter
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+
+    kernel, buffer, batch = geometry
+    h, w, c = shape
+    rng = np.random.default_rng(seed + 20)
+    scene = rng.random(shape, dtype=np.float32) * np.float32(0.4)
+    scene[:edge_rows] = 0.0
+    scene[:, :edge_cols] = 0.0
+    src = os.path.join(work, "swath.tif")
+    tf = (10.0, 0.0, 600000.0, 0.0, -10.0, 4500000.0)
+    t0 = time.perf_counter()
+    with GeoTiffStreamWriter(src, h, w, c, np.float32, transform=tf, crs="EPSG:32617",
+                             nodata=0.0, compress="none") as wr:
+        for y in range(0, h, 2048):
+            wr.write_rows(scene[y : y + 2048])
+    write_s = time.perf_counter() - t0
+
+    # what the run must do, from the whole-scene chip grid and its validity
+    probe = TiledInferenceEngine(lambda x: x, kernel=kernel, buffer=buffer, nodata=0.0,
+                                 device="cpu")
+    valid = probe.chip_validity(scene)
+    rows, cols = -(-h // kernel), -(-w // kernel)
+    grid = valid.reshape(rows, cols)
+    bands = band_chip_rows(rows, max_rows, kernel, buffer)
+    kept_bands = sum(bool(grid[lo:hi].any()) for lo, hi in bands)
+
+    out = os.path.join(work, "swath_pred.tif")
+    stitch.hann_stitch.launches = 0
+    stitch._device_axis_weights.cache_clear()
+    _, text, cli_s = run_cli(predict, [
+        "scene", "--input", src, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
+        "--output", out, "--max-rows", str(max_rows), "--nodata", "0", "--cog", "--uint8",
+        "--predictor", "2", *extra_flags])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = stitch.hann_stitch.launches
+    weights_cache = stitch._device_axis_weights.cache_info()
+    check(launches == kept_bands,
+          f"hann_stitch launched {launches} times for {kept_bands} bands with a kept chip")
+    check("streamed banded, cog" in text, "the swath was not streamed banded")
+
+    res = GeoTiffScene(out)
+    pred = np.asarray(res)
+    check(res.dtype == np.uint8 and pred.shape == (h, w, 1), f"output {res.dtype} {pred.shape}")
+    check("32617" in res.meta.get("crs", "") and tuple(res.meta["transform"]) == tf,
+          f"georeferencing lost: {res.meta}")
+    check(res.nodata == 0.0, f"nodata tag lost: {res.nodata}")
+    over = GeoTiffScene(out, page=1)
+    check(over.shape[:2] == (h // 2, w // 2), f"overview page {over.shape}")
+    # pixels that only culled chips reach stay 0: above the first kept
+    # chip row's window and left of the first kept column's
+    half = buffer // 2
+    r_min = int(np.flatnonzero(grid.any(1))[0])
+    c_min = int(np.flatnonzero(grid.any(0))[0])
+    zero_rows, zero_cols = max(0, r_min * kernel - half), max(0, c_min * kernel - half)
+    check(not pred[:zero_rows].any() and not pred[:, :zero_cols].any(),
+          "nonzero output where only culled chips reach")
+    check(pred[zero_rows:, zero_cols:].any(), "no prediction on the valid part")
+
+    # ---- the engine API: banded + culled against unbanded, unculled, with
+    # the model served in bfloat16 (as the CLI serves it) and in float32
+    # (TF32 off): a chip's bf16 prediction can change with its position in
+    # a batch (measured below), which banding and culling change; float32
+    # shows what banding and culling themselves do
+    models = {"bfloat16": predict.load_model(ckpt, torch.device(device), fold_bn=True),
+              "float32": predict.load_model(ckpt, torch.device("cpu"), fold_bn=True).to(device)}
+    ok = torch.from_numpy((scene != 0).any(-1))
+    runs, errs = {}, {}
+    for dtype, served in models.items():
+        for name, kw in (("unbanded", {}), ("banded", {"max_rows": max_rows}),
+                         ("banded_culled", {"max_rows": max_rows, "nodata": 0.0})):
+            fwd = CountingForward(lambda x, served=served: served(x)["probs"])
+            engine = TiledInferenceEngine(fwd, kernel=kernel, buffer=buffer, batch_size=batch,
+                                          blend="hann", device=device, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            prob = engine.predict_scene(scene).cpu()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+            runs[dtype, name] = dict(prob=prob, chips=fwd.chips, seconds=seconds, peak_gib=peak)
+        for name in ("banded", "banded_culled"):
+            errs[dtype, name] = (runs[dtype, name]["prob"][ok]
+                                 - runs[dtype, "unbanded"]["prob"][ok]).abs().max().item()
+    # the same 16 chips in two orders: a chip's change with its batch slot
+    rng_chips = np.random.default_rng(seed + 21)
+    corners = [(int(y), int(x)) for y, x in zip(
+        rng_chips.integers(edge_rows, h - kernel - buffer, batch),
+        rng_chips.integers(edge_cols, w - kernel - buffer, batch))]
+    chips = torch.stack([torch.from_numpy(scene[y : y + kernel + buffer, x : x + kernel + buffer])
+                         for y, x in corners]).to(device)
+    slot_err = {}
+    with torch.inference_mode():
+        for dtype, served in models.items():
+            a = served(chips)["probs"].float()
+            b = served(chips.roll(1, 0))["probs"].float().roll(-1, 0)
+            slot_err[dtype] = (a - b).abs().max().item()
+    check(errs["float32", "banded_culled"] <= 1e-3,
+          "banded + culled disagrees with unbanded on valid pixels (float32): "
+          f"{errs['float32', 'banded_culled']}")
+    # bf16 carries 8 bits of mantissa (eps 7.8e-3)
+    check(errs["bfloat16", "banded_culled"] <= 1e-2,
+          "banded + culled disagrees with unbanded on valid pixels (bfloat16): "
+          f"{errs['bfloat16', 'banded_culled']}")
+    if device == "cuda":
+        check(runs["bfloat16", "banded_culled"]["peak_gib"]
+              < runs["bfloat16", "unbanded"]["peak_gib"],
+              "banding did not lower the peak device memory")
+    mpix = h * w / 1e6
+    fields = dict(
+        scene=list(shape), nodata_rows=edge_rows, nodata_cols=edge_cols, max_rows=max_rows,
+        geometry=list(geometry), bands=len(bands), band_chip_rows=bands,
+        bands_with_kept_chip=kept_bands, kept_chips=int(valid.sum()), total_chips=valid.size,
+        launches=launches, axis_weight_cache=weights_cache._asdict(),
+        input_write_seconds=write_s, cli_seconds=cli_s, cli_mpix_per_s=mpix / cli_s,
+        output_dtype=str(res.dtype), output_shape=list(pred.shape), output_max=int(pred.max()),
+        zero_rows=zero_rows, zero_cols=zero_cols,
+        max_abs_err_vs_unbanded_on_valid={f"{d}/{n}": e for (d, n), e in errs.items()},
+        batch_slot_max_abs_err=slot_err,
+        api={f"{d}/{n}": {k: v for k, v in r.items() if k != "prob"}
+             for (d, n), r in runs.items()},
+        halo_forward_overhead=(runs["bfloat16", "banded"]["chips"]
+                               / runs["bfloat16", "unbanded"]["chips"]))
+    return fields, launches
+
+
+def sweep_phase(torch, predict, stitch, ckpt, work, shape, n_scenes, geometry,
+                extra_flags=(), seed=SEED, device="cuda"):
+    """The sweep path: ``n_scenes`` .npy scenes (the second one half
+    nodata) through ``predict sweep --prefetch 2 --nodata 0``; every output
+    against ``engine.predict_scene`` of the same scene; then the engine's
+    pipelined ``predict_scenes(readback=True)`` beside a serial loop of
+    ``predict_scene`` from host memory. Returns (fields, launches)."""
+    from satellite_computervision_tpu_torch.geo import read_geotiff
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+
+    kernel, buffer, batch = geometry
+    rng = np.random.default_rng(seed + 30)
+    indir = os.path.join(work, "sweep_in")
+    os.makedirs(indir, exist_ok=True)
+    scenes = []
+    for i in range(n_scenes):
+        scene = rng.random(shape, dtype=np.float32) * np.float32(0.4)
+        if i == 1:
+            scene[:, : shape[1] // 2] = 0.0
+        scenes.append(scene)
+        np.save(os.path.join(indir, f"scene{i}.npy"), scene)
+    outdir = os.path.join(work, "sweep_out")
+    stitch.hann_stitch.launches = 0
+    written, text, cli_s = run_cli(predict, [
+        "sweep", "--input", indir, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
+        "--outdir", outdir, "--prefetch", "2", "--nodata", "0", *extra_flags])
+    launches = stitch.hann_stitch.launches
+    check(launches == n_scenes, f"hann_stitch launched {launches} times for {n_scenes} scenes")
+    cli_mpix_s = float(text.rsplit("(", 1)[1].split(" MPix/s")[0])
+
+    served = predict.load_model(ckpt, torch.device(device), fold_bn=True)
+    engine = TiledInferenceEngine(lambda x: served(x)["probs"], kernel=kernel, buffer=buffer,
+                                  batch_size=batch, blend="hann", nodata=0.0, device=device)
+    errs = []
+    for path, scene in zip(written, scenes):
+        got, _ = read_geotiff(path)
+        want = engine.predict_scene(scene).cpu().numpy()
+        check(got.shape == want.shape and np.isfinite(got).all(), f"sweep output {path}")
+        errs.append(float(np.abs(got - want).max()))
+    check(max(errs) <= 1e-6, f"sweep output disagrees with predict_scene: {errs}")
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def pipelined():
+        return list(engine.predict_scenes(iter(scenes), prefetch=2, readback=True))
+
+    def serial():
+        return [engine.predict_scene(s).cpu().numpy() for s in scenes]
+
+    times = {}
+    for name, fn in (("pipelined", pipelined), ("serial", serial)):
+        fn()  # warm
+        sync()
+        samples = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            samples.append(time.perf_counter() - t0)
+        times[name] = sorted(samples)
+    mpix = n_scenes * shape[0] * shape[1] / 1e6
+    fields = dict(scenes=n_scenes, scene=list(shape), half_nodata_scene=1, prefetch=2,
+                  launches=launches, cli_seconds=cli_s, cli_mpix_per_s=cli_mpix_s,
+                  max_abs_err_vs_predict_scene=errs,
+                  pipelined_seconds=times["pipelined"], serial_seconds=times["serial"],
+                  pipelined_mpix_per_s=mpix / median(times["pipelined"]),
+                  serial_mpix_per_s=mpix / median(times["serial"]))
+    return fields, launches
+
+
+def whole_phase(torch, predict, ckpt, work, scene_path, geometry, extra_flags=(),
+                device="cuda"):
+    """``--tile-mode whole`` on the slice's scene through the CLI, then the
+    engine's warm whole-scene time and peak device memory."""
+    from satellite_computervision_tpu_torch.geo import read_geotiff
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+
+    out = os.path.join(work, "pred_whole.tif")
+    _, text, cli_s = run_cli(predict, [
+        "scene", "--input", scene_path, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
+        "--tile-mode", "whole", "--output", out, *extra_flags])
+    pred, _ = read_geotiff(out)
+    check(np.isfinite(pred).all() and pred.min() >= 0.0 and pred.max() <= 1.0,
+          "whole-mode output not finite in [0, 1]")
+    served = predict.load_model(ckpt, torch.device(device), fold_bn=True)
+    engine = TiledInferenceEngine(lambda x: served(x)["probs"], kernel=geometry[0],
+                                  buffer=geometry[1], tile_mode="whole", whole_multiple=64,
+                                  device=device)
+    scene = np.load(scene_path)
+    peak = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: engine.predict_scene(scene), iters=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    else:
+        t0 = time.perf_counter()
+        engine.predict_scene(scene)
+        ms = [(time.perf_counter() - t0) * 1e3]
+    h, w = scene.shape[:2]
+    pad = [h + geometry[1] + (-(h + geometry[1])) % 64, w + geometry[1] + (-(w + geometry[1])) % 64]
+    return dict(scene=list(scene.shape), padded_to=pad, cli_seconds=cli_s,
+                output_min=float(pred.min()), output_max=float(pred.max()),
+                scene_ms_host_input=ms, scene_ms=median(ms), peak_mem_gib=peak)
+
+
+def patches_phase(torch, predict, ckpt, work, n_files, per_file, extra_flags=(), seed=SEED):
+    """An EE-style export (GZIP TFRecord patches of kernel + buffer, plus
+    mixer.json) through ``predict patches``; checks the count and shape of
+    the prediction records."""
+    from satellite_computervision_tpu_torch.data.tfrecord import read_tfrecord_file
+    from satellite_computervision_tpu_torch.inference.mixer import MixerInfo, write_mixer
+    from satellite_computervision_tpu_torch.train.config import SOLAR_CONFIG as cfg
+
+    export = os.path.join(work, "export")
+    os.makedirs(export, exist_ok=True)
+    side = cfg.kernel_size + cfg.kernel_buffer
+    t0 = time.perf_counter()
+    for i in range(n_files):
+        synthesize_chips(os.path.join(export, f"solar-{i:05d}.tfrecord.gz"), per_file,
+                         list(cfg.bands), cfg.response, side, seed + 40 + i)
+    n = n_files * per_file
+    write_mixer(os.path.join(export, "mixer.json"),
+                MixerInfo(n, n_files, (cfg.kernel_size, cfg.kernel_size),
+                          (10.0, 0.0, 600000.0, 0.0, -10.0, 4500000.0), "EPSG:32617"))
+    synth_s = time.perf_counter() - t0
+    written, text, cli_s = run_cli(predict, [
+        "patches", "--input", export, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
+        "--outdir", os.path.join(work, "patch_preds"), "--base", "solar", *extra_flags])
+    check(len(written) == 1, f"expected one prediction file, got {written}")
+    records = read_tfrecord_file(written[0], compression=None)
+    check(len(records) == n, f"{len(records)} prediction records for {n} patches")
+    vals = np.concatenate([np.asarray(r["b1"]) for r in records])
+    check(all(set(r) == {"b1"} and len(r["b1"]) == cfg.kernel_size ** 2 for r in records),
+          "prediction records of the wrong shape")
+    check(np.isfinite(vals).all() and vals.min() >= 0.0 and vals.max() <= 1.0,
+          "patch predictions not finite in [0, 1]")
+    return dict(files=n_files, patches=n, patch_side=side, synth_seconds=synth_s,
+                cli_seconds=cli_s, records=len(records),
+                record_len=cfg.kernel_size ** 2, mixer=f"mixer: {n} patches" in text)
 
 
 def device_profile(torch, fn, calls=1):
@@ -518,13 +865,17 @@ def main():
     rows, cols = -(-SCENE[0] // kernel), -(-SCENE[1] // kernel)
     small = stitch_case(torch, stitch, 16, 8, 3, 4, 2, gen, timed=False)
     main_shape = stitch_case(torch, stitch, kernel, buffer, rows, cols, 1, gen, timed=True)
-    emit("kernels", name="hann_stitch", small=small, main_path=main_shape)
+    # the swath's bands (5 chip rows; the last 2), their first rows culled
+    band_cases = [stitch_case(torch, stitch, kernel, buffer, r, SWATH[1] // kernel, 1, gen,
+                              timed=False, culled_rows=z) for r, z in ((5, 2), (2, 0))]
+    emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases)
     # the engine's route: the same products and adds in the same order, so
     # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
-    check(small["max_abs_err"] == 0.0 and main_shape["max_abs_err"] == 0.0,
+    cases = [small, main_shape] + band_cases
+    check(all(c["max_abs_err"] == 0.0 for c in cases),
           "hann_stitch(apply_window=True) is not bit-equal to its plain version")
-    check(small["weighted_max_abs_err"] <= tol and main_shape["weighted_max_abs_err"] <= tol,
+    check(all(c["weighted_max_abs_err"] <= tol for c in cases),
           f"hann_stitch disagrees with its plain version beyond {tol}")
 
     # fused_preprocess at the training path's shape: a batch of 64 chips,
@@ -619,6 +970,19 @@ def main():
          mpix_per_s_device_input=mpix / (med_dev / 1e3),
          forward_ms_per_batch=fwd_ms, peak_mem_gib=peak_gib)
 
+    # ---- the swath: banded, culled, lazy input, COG out
+    swath, swath_launches = swath_phase(torch, predict, stitch, ckpt, work, SWATH, *SWATH_EDGE,
+                                        SWATH_MAX_ROWS, (kernel, buffer, batch))
+    emit("swath", **swath)
+    # ---- the multi-scene sweep, pipelined
+    sweep, sweep_launches = sweep_phase(torch, predict, stitch, ckpt, work, SCENE,
+                                        SWEEP_SCENES, (kernel, buffer, batch))
+    emit("sweep", **sweep)
+    emit("whole", **whole_phase(torch, predict, ckpt, work, scene_path, (kernel, buffer)))
+    emit("patches", **patches_phase(torch, predict, ckpt, work, 2, 8))
+    serving_launches = {"slice": launches["hann_stitch"], "swath": swath_launches,
+                        "sweep": sweep_launches}
+
     # ---- the solar training slice, then its checkpoint served
     train_fields, train_launches, train_step, train_preprocess = train_phase(torch, work, gen)
     emit("train", **train_fields)
@@ -634,7 +998,8 @@ def main():
         {"name": "hann_stitch", "route": "cuda",
          "source": "satellite_computervision_tpu_torch/csrc/hann_stitch.cu",
          "replaces": "satellite_computervision_tpu/pallas/stitch.py:130",
-         "launches": launches["hann_stitch"], "max_abs_err": main_shape["max_abs_err"],
+         "launches": sum(serving_launches.values()), "launches_by_path": serving_launches,
+         "max_abs_err": main_shape["max_abs_err"],
          "ms": main_shape["ms"], "device_ms": main_shape["device_ms"],
          "plain_ms": main_shape["plain_ms"],
          "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],

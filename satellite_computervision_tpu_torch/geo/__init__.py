@@ -1,6 +1,7 @@
 """Self-contained GeoTIFF codec (the port's own copy; no GDAL/rasterio)."""
 
 from satellite_computervision_tpu_torch.geo.geotiff import (
+    GeoTiffCogStreamWriter,
     GeoTiffScene,
     GeoTiffStreamWriter,
     read_geotiff,
@@ -14,4 +15,5 @@ __all__ = [
     "read_geotiff",
     "GeoTiffScene",
     "GeoTiffStreamWriter",
+    "GeoTiffCogStreamWriter",
 ]

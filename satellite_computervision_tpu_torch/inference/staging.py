@@ -1,0 +1,146 @@
+"""Scene and band staging for the tiled engine: threads that keep the host
+side ahead of the device.
+
+- :func:`run_ahead` iterates a generator on a daemon thread, at most
+  ``size`` items ahead of the consumer. Items arrive in order, an error in
+  the thread re-raises in the consumer, and closing the consumer (or an
+  error in it) stops the thread and joins it: an abandoned stream leaves
+  no thread behind, blocked or not.
+- :func:`stage_to_device` is the host-to-device stage built on it. On
+  CUDA each host array is copied into one of ``size + 1`` pinned host
+  buffers used in turn (a buffer is written again only after the copy
+  that last read it has finished, so a reused buffer never corrupts a
+  scene still in flight), then sent with a ``non_blocking`` copy on a side
+  stream. The consumer's stream waits on the copy's event, and the device
+  tensor is marked as used on the consumer's stream (``record_stream``)
+  so the caching allocator does not hand its memory back to the side
+  stream early. On the CPU the arrays become tensors and nothing is
+  copied, through the same threads.
+
+The training iterator (``data/pipeline.py::prefetch_to_device``) stages
+dicts of batches and is separate.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_END, _ERR = object(), object()
+
+
+def run_ahead(items: Iterable, size: int, device: torch.device) -> Iterator:
+    """Yield the items of ``items``, produced on a daemon thread at most
+    ``size`` ahead (with ``device`` current there when it is CUDA)."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def work():
+        it = iter(items)
+        try:
+            for item in it:
+                if not put((item, None)):
+                    return
+        except BaseException as e:  # handed to the consumer, which re-raises it
+            put((_ERR, e))
+        else:
+            put((_END, None))
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def worker():
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                work()
+        else:
+            work()
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, err = q.get()
+            if item is _END:
+                return
+            if item is _ERR:
+                raise err
+            yield item
+    finally:
+        stop.set()
+        thread.join()
+
+
+class _PinnedRing:
+    """``n`` pinned host buffers, used in turn and grown when an array
+    needs more room."""
+
+    def __init__(self, n: int):
+        self.buffers = [None] * n
+        self.events = [None] * n
+        self.next = 0
+
+    def copy_to(self, arr: np.ndarray, device: torch.device,
+                stream: "torch.cuda.Stream") -> Tuple[torch.Tensor, "torch.cuda.Event"]:
+        i = self.next
+        self.next = (i + 1) % len(self.buffers)
+        if self.events[i] is not None:
+            self.events[i].synchronize()  # the copy that last read buffer i
+        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+        n_bytes = max(arr.nbytes, 1)
+        if self.buffers[i] is None or self.buffers[i].numel() < n_bytes:
+            self.buffers[i] = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+        host = self.buffers[i][: arr.nbytes].view(dtype).view(arr.shape)
+        np.copyto(host.numpy(), arr)
+        with torch.cuda.stream(stream):
+            out = torch.empty(arr.shape, dtype=dtype, device=device)
+            out.copy_(host, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        self.events[i] = event
+        return out, event
+
+
+def stage_to_device(items: Iterable, size: int, device: torch.device) -> Iterator:
+    """``(array, tag)`` pairs -> ``(tensor on device, tag)`` pairs, in
+    order, staged on a thread at most ``size`` items ahead. ``array`` is a
+    numpy array (any strides, e.g. a memory-mapped slice) or a tensor
+    (moved as it is). The tags ride along untouched (e.g. a chip-validity
+    mask computed on the staging thread)."""
+    cuda = device.type == "cuda"
+    ring = _PinnedRing(size + 1) if cuda else None
+    side = torch.cuda.Stream(device) if cuda else None
+
+    def staged():
+        for arr, tag in items:
+            if isinstance(arr, torch.Tensor):
+                yield (arr.to(device), None), tag
+            elif cuda:
+                yield ring.copy_to(np.asarray(arr), device, side), tag
+            else:
+                yield (torch.from_numpy(np.ascontiguousarray(arr)), None), tag
+
+    it = run_ahead(staged(), size, device)
+    try:
+        for (tensor, event), tag in it:
+            if event is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
+                tensor.record_stream(current)
+            yield tensor, tag
+    finally:
+        it.close()

@@ -7,18 +7,27 @@ training state is saved, ``"optimizer"`` (the optimizer's
 ``state_dict``) and ``"step"``. ``model_kwargs`` are the ``UNet``
 constructor arguments (``UNet.kwargs``); ``meta`` is a JSON-able dict
 ``{"step", "metrics"}``. ``predict.load_model`` reads ``<dir>/best``.
-Reading the JAX package's msgpack and orbax checkpoints is not ported yet;
-tests move JAX weights across with ``models.bridge.flax_to_torch``.
+
+The JAX package's msgpack checkpoints (``<dir>/state.msgpack`` from
+``flax.serialization.to_bytes`` plus ``meta.json``) are read by
+:func:`read_flax_checkpoint` through the port's own decoder
+(``train/flax_msgpack.py``; no ``msgpack``, ``flax`` or ``jax`` import),
+and :func:`load_flax_weights` puts their ``params``/``batch_stats`` into a
+``UNet`` with ``models.bridge.flax_to_torch``; ``opt_state`` is decoded
+but not used. Orbax checkpoints are not ported.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
 from satellite_computervision_tpu_torch.models.unet import UNet
+from satellite_computervision_tpu_torch.train import flax_msgpack
 
 
 def _file(path: str, which: str) -> str:
@@ -57,6 +66,30 @@ def load_checkpoint(path: str, which: str = "best", **overrides) -> Tuple[UNet, 
     model = UNet(**{**blob["model_kwargs"], **overrides})
     model.load_state_dict(blob["state_dict"])
     return model.eval(), blob["meta"]
+
+
+def read_flax_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict]:
+    """``(state tree, meta)`` of a JAX-package checkpoint directory
+    ``path`` (``state.msgpack`` + ``meta.json``, as its
+    ``train/checkpoint.py::save_checkpoint`` writes them). The tree holds
+    ``step``, ``params``, ``batch_stats`` and ``opt_state`` as numpy
+    arrays; ``meta`` is ``{}`` without ``meta.json``."""
+    with open(os.path.join(path, "state.msgpack"), "rb") as f:
+        tree = flax_msgpack.restore(f.read())
+    meta = {}
+    meta_path = os.path.join(path, "meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return tree, meta
+
+
+def load_flax_weights(model: UNet, tree: Dict[str, Any]) -> UNet:
+    """Load a flax state tree's ``params``/``batch_stats`` into ``model``
+    (eval mode). A tree of another architecture raises ``KeyError`` (a
+    missing or unused leaf) or ``RuntimeError`` (a shape mismatch)."""
+    model.load_state_dict(flax_to_torch(tree["params"], tree.get("batch_stats"), model))
+    return model.eval()
 
 
 class CheckpointManager:

@@ -1,5 +1,6 @@
-"""The port's boundary: it imports no JAX and nothing of the JAX package,
-and its entry points default to CUDA and raise without it."""
+"""The port's boundary: it imports no JAX, no flax/optax/msgpack and
+nothing of the JAX package, and its entry points default to CUDA and raise
+without it."""
 
 import ast
 import pathlib
@@ -14,9 +15,10 @@ import satellite_computervision_tpu_torch as port
 from satellite_computervision_tpu_torch import predict as cli
 from satellite_computervision_tpu_torch._device import resolve_device
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+from satellite_computervision_tpu_torch.inference.batch import run_batch_prediction
 
 ROOT = pathlib.Path(port.__file__).resolve().parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "satellite_computervision_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "satellite_computervision_tpu")
 
 
 def _module(path):
@@ -29,7 +31,7 @@ MODULES = sorted(_module(p) for p in ROOT.rglob("*.py"))
 
 def test_imports_with_jax_blocked():
     """Every module imports in a fresh interpreter whose meta-path refuses
-    jax/flax/optax and the JAX package."""
+    jax/flax/optax/msgpack and the JAX package."""
     code = f"""
 import sys
 BLOCKED = {BLOCKED!r}
@@ -85,7 +87,19 @@ def test_engine_defaults_to_cuda(no_cuda):
     assert TiledInferenceEngine(lambda c: c, device="cpu").device.type == "cpu"
 
 
-def test_cli_defaults_to_cuda(no_cuda, tmp_path):
+@pytest.mark.parametrize("mode", ["scene", "sweep", "patches"])
+def test_cli_defaults_to_cuda(no_cuda, tmp_path, mode):
     np.save(tmp_path / "s.npy", np.zeros((8, 8, 6), np.float32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["scene", "--input", str(tmp_path / "s.npy"), "--ckpt", str(tmp_path)])
+        cli.main([mode, "--input", str(tmp_path / "s.npy"), "--ckpt", str(tmp_path)])
+
+
+def test_batch_prediction_defaults_to_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_batch_prediction(str(tmp_path), lambda x: x, ["B2"], str(tmp_path / "out"), "p")
+
+
+def test_new_modules_are_covered():
+    for name in ("inference.staging", "inference.batch", "inference.mixer",
+                 "inference.writers", "train.flax_msgpack"):
+        assert f"satellite_computervision_tpu_torch.{name}" in MODULES

@@ -241,3 +241,57 @@ def test_engine_cuda_matches_cpu(cuda, blend):
     assert stitch.hann_stitch.launches == before + (blend == "hann")
     want = TiledInferenceEngine.from_model(model.cpu(), device="cpu", **kw).predict_scene(scene)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def _engine(cuda, model, **kw):
+    return TiledInferenceEngine.from_model(model, device=cuda, **{
+        "kernel": 16, "buffer": 8, "batch_size": 4, "blend": "hann", **kw})
+
+
+@pytest.fixture
+def small_unet():
+    torch.manual_seed(0)
+    return UNet(6, n_classes=1, filters=(8, 16), factors=(2, 2), head="sigmoid",
+                space_to_depth=True).eval()
+
+
+def test_banded_hann_on_card_equals_unbanded(cuda, small_unet):
+    """Bands (one halo chip row per interior side) through the CUDA
+    hann_stitch, one launch per band, equal the one-shot canvas."""
+    scene = np.random.default_rng(2).uniform(0, 1, (150, 70, 6)).astype(np.float32)
+    want = _engine(cuda, small_unet).predict_scene(scene)
+    before = stitch.hann_stitch.launches
+    got = _engine(cuda, small_unet, max_rows=56).predict_scene(scene)
+    # 10 chip rows, bands of 3 rows advancing 1: 10 bands
+    assert stitch.hann_stitch.launches == before + 10
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_culled_on_card_equals_unculled_on_valid_pixels(cuda, small_unet):
+    scene = np.random.default_rng(3).uniform(0.1, 1, (150, 70, 6)).astype(np.float32)
+    scene[:60] = 0.0
+    scene[:, :20] = 0.0
+    valid = torch.from_numpy((scene != 0).any(-1))
+    for kw in ({}, {"max_rows": 56}):
+        want = _engine(cuda, small_unet, **kw).predict_scene(scene).cpu()
+        got = _engine(cuda, small_unet, nodata=0.0, **kw).predict_scene(scene).cpu()
+        torch.testing.assert_close(got[valid], want[valid], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("prefetch", [1, 2])
+def test_predict_scenes_staging_on_card_equals_predict_scene(cuda, small_unet, prefetch):
+    """Pinned ring staging + read-back over 7 scenes of two sizes (the ring
+    of prefetch + 1 buffers wraps and grows) equals predict_scene scene by
+    scene; with nodata the validity rides along from the staging thread."""
+    rng = np.random.default_rng(4)
+    scenes = []
+    for i in range(7):
+        s = rng.uniform(0.1, 1, (64 + 16 * (i % 2), 48, 6)).astype(np.float32)
+        s[: 8 * i] = 0.0
+        scenes.append(s)
+    engine = _engine(cuda, small_unet, nodata=0.0)
+    got = list(engine.predict_scenes(iter(scenes), prefetch=prefetch, readback=True))
+    assert len(got) == 7
+    for scene, out in zip(scenes, got):
+        assert isinstance(out, np.ndarray)
+        np.testing.assert_array_equal(out, engine.predict_scene(scene).cpu().numpy())
