@@ -12,7 +12,8 @@ line):
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at a small shape and at the shape its path gives it (``hann_stitch`` on
    the engine's route, raw predictions with the window applied in the
-   kernel, bit-equal, and on pre-weighted chips; ``fused_preprocess`` also
+   kernel, bit-equal, and on pre-weighted chips, at the solar and the
+   change serving grids; ``fused_preprocess`` also
    with a NaN plane, negative and zero contrast and every flip/rotation,
    and at the parking preset's 16 x 512² x 4 chips, whose rows do not fit
    in shared memory: the kernel's streamed route; ``hann_stitch`` also at
@@ -53,9 +54,28 @@ line):
    the CPU from the same init and batch; warm step, preprocess and fed
    (host pipeline included) times; then the trained ``best`` checkpoint
    served through the ``predict`` CLI.
-8. ``profile``: one warm scene, three warm train steps and five warm
-   ``make_preprocess_fn`` calls under ``torch.profiler``: device time by
-   kernel, host time by op and the device's busy share.
+8. ``change_train``: the change-detection training path at full
+   ``CHANGE_CONFIG`` width (the Siamese U-Net, filters 32/64/128, ASPP of
+   256 per tower) — 64 before/after/label ``.npy`` chip triples from the
+   seed through ``python -m satellite_computervision_tpu_torch.train
+   --config change`` (``SiameseChipDataset``, batch 8, 256², bf16
+   autocast, weighted BCE with pos_weight 4, Adam 9e-4, BN momentum
+   0.99); the loss finite and ``best/model.pt`` of ``arch`` siamese; the
+   warm step, chips/s and peak memory.
+9. ``change``: a 2048 x 2048 x 4 float32 before/after pair (nodata in the
+   left 512 columns of both, a changed block in the after scene) through
+   ``predict change --nodata 0 --cog --uint8 --predictor 2`` on the
+   trained checkpoint (k256 + b128, batch 8, hann, bf16), and again with
+   ``--max-rows 1024``; ``hann_stitch`` launches against the count from
+   the engine's grid and ``chip_validity``; the uint8 output's shape and
+   culled zeros; one chip pair's float32 forward on the card against the
+   CPU; the engine API banded + culled against one unbanded, unculled run
+   on the valid pixels (float32 and bf16); CLI seconds, MPix/s of scene
+   pairs and the forward's time per 8-chip batch.
+10. ``profile``: one warm scene, three warm train steps, five warm
+   ``make_preprocess_fn`` calls, three warm change train steps and one
+   warm change pair under ``torch.profiler``: device time by kernel, host
+   time by op and the device's busy share.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -63,6 +83,7 @@ result. Writes scratch files under ``build/chip_smoke/``.
 """
 
 import copy
+import glob
 import gzip
 import json
 import math
@@ -80,6 +101,10 @@ SCENE = (1920, 1920, 6)
 SWATH, SWATH_EDGE, SWATH_MAX_ROWS = (10980, 2560, 6), (2700, 640), 2688
 SWEEP_SCENES = 4
 TRAIN_STEPS, TRAIN_EPOCHS = 3, 2  # steps per epoch; an eval ends each epoch
+# change detection: chip triples and steps of the training run; the
+# served pair (nodata in the left columns of both) and its band height
+CHANGE_CHIPS, CHANGE_STEPS = 64, 6
+CHANGE_SCENE, CHANGE_EDGE, CHANGE_MAX_ROWS = (2048, 2048, 4), 512, 1024
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -141,18 +166,23 @@ def device_ms(fn, name=None, calls=50):
     return total / calls if events else "not measured"
 
 
-def wall_ms(fn, iters=10):
-    """Sorted host-clock milliseconds of ``iters`` warm calls, each ended
-    by a device synchronize."""
+def sync(device="cuda"):
     import torch
 
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def wall_ms(fn, iters=10, device="cuda"):
+    """Sorted host-clock milliseconds of ``iters`` warm calls, each ended
+    by a device synchronize."""
     fn()
-    torch.cuda.synchronize()
+    sync(device)
     times = []
     for _ in range(iters):
         t = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync(device)
         times.append((time.perf_counter() - t) * 1e3)
     return sorted(times)
 
@@ -337,16 +367,17 @@ def serve_through_cli(torch, predict, stitch, read_geotiff, ckpt, scene_path, ou
     return pred, launches, cli_s
 
 
-def run_cli(predict, argv):
-    """``predict.main(argv)``, its standard output captured and echoed to
-    standard error; returns (result, output text, seconds)."""
+def run_cli(cli, argv):
+    """``cli.main(argv)`` (the ``predict`` or ``train`` CLI), its standard
+    output captured and echoed to standard error; returns (result, output
+    text, seconds)."""
     import contextlib
     import io
 
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        result = predict.main(argv)
+        result = cli.main(argv)
     seconds = time.perf_counter() - t0
     print(buf.getvalue(), file=sys.stderr, end="", flush=True)
     return result, buf.getvalue(), seconds
@@ -827,6 +858,228 @@ def train_phase(torch, work, gen):
             lambda: preprocess(raw, draw_gen, train=True))
 
 
+def synthesize_change_chips(root, n, bands, side, seed):
+    """``n`` before/after/label ``.npy`` chip triples under ``root``
+    (``before/``, ``after/``, ``label/``): bands x side² float32
+    reflectances in [0, 10000] (a per-band level plus noise), labels
+    1 x side² uint8 in {0, 1, 2}; the after chip carries a changed block
+    (bright, re-drawn) where the label is 2. Returns the three globs."""
+    rng = np.random.default_rng(seed)
+    dirs = {name: os.path.join(root, name) for name in ("before", "after", "label")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        level = rng.uniform(500.0, 3000.0, (bands, 1, 1))
+        before = np.clip(level + rng.normal(0.0, 300.0, (bands, side, side)), 0, 10000)
+        after = np.clip(before + rng.normal(0.0, 100.0, before.shape), 0, 10000)
+        label = np.zeros((1, side, side), np.uint8)
+        y, x = rng.integers(0, side // 2, 2)
+        label[:, y : y + side // 8, x : x + side // 8] = 1  # an unchanged class
+        y, x = rng.integers(0, side // 2, 2)
+        hh, ww = rng.integers(side // 8, side // 3, 2)
+        label[:, y : y + hh, x : x + ww] = 2
+        after[:, y : y + hh, x : x + ww] = rng.uniform(6000.0, 10000.0, (bands, hh, ww))
+        for name, arr in (("before", before.astype(np.float32)),
+                          ("after", after.astype(np.float32)), ("label", label)):
+            np.save(os.path.join(dirs[name], f"{name}_{i:03d}.npy"), arr)
+    return [os.path.join(d, "*.npy") for d in dirs.values()]
+
+
+def change_train_phase(torch, work, n_chips, side, batch, steps, extra_flags=(), seed=SEED,
+                       device="cuda"):
+    """The change-detection training path through the train CLI
+    (``--config change``, ``batch`` chips a step) on ``n_chips`` synthetic
+    chip triples of ``side``², then the warm train step on one batch of the
+    same dataset. Returns (phase fields, checkpoint directory, a warm train
+    step)."""
+    from satellite_computervision_tpu_torch.data.chip_generators import SiameseChipDataset
+    from satellite_computervision_tpu_torch.train import __main__ as train_cli
+
+    cfg = train_cli.CONFIGS["change"]
+    t0 = time.perf_counter()
+    globs = synthesize_change_chips(os.path.join(work, "change_chips"), n_chips,
+                                    len(cfg.bands), side, seed + 60)
+    synth_s = time.perf_counter() - t0
+    ckpt = os.path.join(work, "change_ckpt")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer, _, cli_s = run_cli(train_cli, [
+        "--config", "change", "--before", globs[0], "--after", globs[1], "--labels", globs[2],
+        "--ckpt", ckpt, "--epochs", "1", "--steps-per-epoch", str(steps),
+        "--batch-size", str(batch), *extra_flags])
+    sync(device)
+    losses = [r["train"]["loss"] for r in trainer.history]
+    check(trainer.state.step == steps, f"{trainer.state.step} steps for {steps}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    blob = torch.load(os.path.join(ckpt, "best", "model.pt"), map_location="cpu",
+                      weights_only=True)
+    check(blob.get("arch") == "siamese", f"best/model.pt arch {blob.get('arch')!r}")
+
+    # the warm step on one batch of the dataset, already on the device
+    tile, _ = cfg.training_geometry
+    ds = SiameseChipDataset(*(sorted(glob.glob(g)) for g in globs), batch_size=batch,
+                            unet_dim=(tile, tile), seed=seed)
+    (xb, xa), y = ds[0]
+    x = [torch.from_numpy(xb).to(device), torch.from_numpy(xa).to(device)]
+    y = torch.from_numpy(y).to(device)
+
+    def step():
+        trainer.train_step(trainer.state, (x, y))
+
+    step_ms = wall_ms(step, device=device)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    med = median(step_ms)
+    fields = dict(
+        config="change", chips=n_chips, batch=[batch, tile, tile, len(cfg.bands)], steps=steps,
+        dtype="bfloat16 autocast" if device == "cuda" and "--no-bf16" not in extra_flags
+        else "float32", arch=blob["arch"], model_kwargs=blob["model_kwargs"],
+        pos_weight=cfg.loss_kwargs.get("pos_weight", 1.0), lr=cfg.learning_rate,
+        history=trainer.history, synth_seconds=synth_s, cli_seconds=cli_s,
+        step_ms=step_ms, step_ms_median=med, chips_per_s=batch / (med / 1e3),
+        mpix_per_s=batch * tile * tile / 1e6 / (med / 1e3),
+        cli_chips_per_s=steps * batch / cli_s, peak_mem_gib=peak)
+    return fields, ckpt, step
+
+
+def change_phase(torch, predict, stitch, ckpt, work, shape, edge_cols, max_rows, geometry,
+                 extra_flags=(), seed=SEED, device="cuda"):
+    """The change path: a before/after pair (nodata in the left
+    ``edge_cols`` columns of both, a changed block in the after scene)
+    through ``predict change`` as a uint8 COG, unbanded and with
+    ``--max-rows``; launches against the counts from the engine's grid and
+    ``chip_validity``; one chip pair's float32 forward on the card against
+    the CPU; the engine API banded + culled against unbanded, unculled on
+    the valid pixels. Returns (fields, launches by path, a warm call of the
+    served engine)."""
+    from satellite_computervision_tpu_torch.geo import read_geotiff
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+    from satellite_computervision_tpu_torch.train.config import CONFIGS
+
+    cfg = CONFIGS["change"]
+    kernel, buffer, batch = geometry
+    h, w, c = shape
+    rng = np.random.default_rng(seed + 70)
+    before = (rng.uniform(0.05, 0.3, (1, 1, c))
+              + rng.normal(0.0, 0.03, shape)).astype(np.float32)
+    after = before + rng.normal(0.0, 0.01, shape).astype(np.float32)
+    after[h // 4 : h // 2, w // 2 : 3 * w // 4] = 0.8  # the change
+    before[:, :edge_cols] = 0.0
+    after[:, :edge_cols] = 0.0
+    paths = [os.path.join(work, f"change_{n}.npy") for n in ("before", "after")]
+    np.save(paths[0], before)
+    np.save(paths[1], after)
+    stack = np.concatenate([before, after], axis=-1)
+
+    # what the runs must launch, from the chip grid and its validity
+    probe = TiledInferenceEngine(lambda x: x, kernel=kernel, buffer=buffer, nodata=0.0,
+                                 device="cpu")
+    valid = probe.chip_validity(stack)
+    rows, cols = -(-h // kernel), -(-w // kernel)
+    grid = valid.reshape(rows, cols)
+    bands = band_chip_rows(rows, max_rows, kernel, buffer)
+    expected = {"change": int(grid.any()),
+                "change_banded": sum(bool(grid[lo:hi].any()) for lo, hi in bands)}
+
+    outs, launches, cli_s = {}, {}, {}
+    for name, flags in (("change", []), ("change_banded", ["--max-rows", str(max_rows)])):
+        outs[name] = os.path.join(work, f"{name}.tif")
+        stitch.hann_stitch.launches = 0
+        _, text, cli_s[name] = run_cli(predict, [
+            "change", "--config", "change", "--input-before", paths[0], "--input-after",
+            paths[1], "--ckpt", ckpt, "--nodata", "0", "--cog", "--uint8", "--predictor", "2",
+            "--output", outs[name], *flags, *extra_flags])
+        sync(device)
+        launches[name] = stitch.hann_stitch.launches
+        check(launches[name] == expected[name],
+              f"{name}: hann_stitch launched {launches[name]} times, expected {expected[name]}")
+    pred, meta = read_geotiff(outs["change"])
+    banded_pred, _ = read_geotiff(outs["change_banded"])
+    check(pred.dtype == np.uint8 and pred.shape == (h, w, 1), f"output {pred.dtype} {pred.shape}")
+    half = buffer // 2
+    c_min = int(np.flatnonzero(grid.any(0))[0])
+    zero_cols = max(0, c_min * kernel - half)
+    check(not pred[:, :zero_cols].any(), "nonzero output where only culled chips reach")
+    check(pred[:, zero_cols:].any(), "no prediction on the valid part")
+    ok = (stack != 0).any(-1)
+    # bf16 probabilities within 1e-2 move a uint8 (x255, truncated) by <= 3
+    uint8_err = int(np.abs(pred[ok].astype(int) - banded_pred[ok].astype(int)).max())
+    check(uint8_err <= 3, f"banded CLI output disagrees with unbanded: {uint8_err}")
+
+    # ---- the engine API: banded + culled against unbanded, unculled, in
+    # the served bf16 and in float32 (TF32 off)
+    load = dict(cfg=cfg, arch="siamese")
+    models = {"bfloat16": predict.load_model(ckpt, torch.device(device), **load),
+              "float32": predict.load_model(ckpt, torch.device("cpu"), **load).to(device)}
+    nb = c
+    runs, errs = {}, {}
+    for dtype, served in models.items():
+        def fwd(chips, served=served):
+            return served(chips[..., :nb], chips[..., nb:])["probs"]
+
+        for name, kw in (("unbanded", {}), ("banded_culled", {"max_rows": max_rows,
+                                                               "nodata": 0.0})):
+            engine = TiledInferenceEngine(fwd, kernel=kernel, buffer=buffer, batch_size=batch,
+                                          blend="hann", device=device, **kw)
+            sync(device)
+            t0 = time.perf_counter()
+            prob = engine.predict_scene(stack).cpu()
+            runs[dtype, name] = dict(prob=prob, seconds=time.perf_counter() - t0)
+        errs[dtype] = (runs[dtype, "banded_culled"]["prob"][torch.from_numpy(ok)]
+                       - runs[dtype, "unbanded"]["prob"][torch.from_numpy(ok)]).abs().max().item()
+    check(errs["float32"] <= 1e-3,
+          f"banded + culled disagrees with unbanded on valid pixels (float32): {errs['float32']}")
+    check(errs["bfloat16"] <= 1e-2,
+          f"banded + culled disagrees with unbanded on valid pixels (bfloat16): {errs['bfloat16']}")
+
+    # ---- one chip pair, float32, card (TF32 off) against the CPU
+    side = kernel + buffer
+    x0 = min(w - side, edge_cols)
+    pair = [torch.from_numpy(np.ascontiguousarray(a[:side, x0 : x0 + side]))[None]
+            for a in (before, after)]
+    cpu_model = predict.load_model(ckpt, torch.device("cpu"), **load)
+    with torch.inference_mode():
+        cpu_logits = cpu_model(*pair)["logits"]
+        dev_logits = models["float32"](*(t.to(device) for t in pair))["logits"].cpu()
+    logit_err = (dev_logits - cpu_logits).abs().max().item()
+    logit_scale = cpu_logits.abs().max().item()
+    check(logit_err <= 1e-4 * max(logit_scale, 1.0),
+          f"f32 card forward disagrees with the CPU: {logit_err} (scale {logit_scale})")
+
+    # ---- warm times: one forward of a full chip batch, one served scene
+    served = models["bfloat16"]
+    gen = torch.Generator().manual_seed(seed + 71)
+    chips = [(torch.rand((batch, side, side, c), generator=gen) * 0.3).to(device)
+             for _ in range(2)]
+    engine = TiledInferenceEngine(lambda x: served(x[..., :nb], x[..., nb:])["probs"],
+                                  kernel=kernel, buffer=buffer, batch_size=batch, blend="hann",
+                                  nodata=0.0, device=device)
+    stack_dev = torch.from_numpy(stack).to(device)
+
+    def run_scene():
+        engine.predict_scene(stack_dev, valid_chips=valid)
+
+    with torch.inference_mode():
+        fwd_ms = wall_ms(lambda: served(*chips), iters=10, device=device)
+    scene_ms = wall_ms(run_scene, iters=5, device=device)
+    mpix = h * w / 1e6
+    fields = dict(
+        config="change", scene=list(shape), pair_bands=2 * c, nodata_cols=edge_cols,
+        geometry=list(geometry), grid=[rows, cols], kept_chips=int(valid.sum()),
+        total_chips=valid.size, max_rows=max_rows, band_chip_rows=bands,
+        launches=launches, expected_launches=expected,
+        cli_seconds=cli_s, cli_mpix_per_s={k: mpix / v for k, v in cli_s.items()},
+        output_dtype=str(pred.dtype), output_shape=list(pred.shape),
+        output_max=int(pred.max()), zero_cols=zero_cols, crs=meta.get("crs", ""),
+        banded_cli_max_uint8_err_on_valid=uint8_err,
+        max_abs_err_banded_culled_vs_unbanded_on_valid=errs,
+        api_seconds={f"{d}/{n}": r["seconds"] for (d, n), r in runs.items()},
+        f32_card_vs_cpu_max_abs_logit_err=logit_err, f32_logit_scale=logit_scale,
+        forward_ms_per_batch=fwd_ms, forward_ms_per_batch_median=median(fwd_ms),
+        scene_ms_device_input=scene_ms, scene_ms=median(scene_ms),
+        mpix_per_s_device_input=mpix / (median(scene_ms) / 1e3))
+    return fields, launches, run_scene
+
+
 def main():
     import torch
 
@@ -841,7 +1094,11 @@ def main():
     from satellite_computervision_tpu_torch.kernels import preprocess as pre
     from satellite_computervision_tpu_torch.models import unet_solar
     from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
-    from satellite_computervision_tpu_torch.train.config import PARKING_CONFIG, SOLAR_CONFIG
+    from satellite_computervision_tpu_torch.train.config import (
+        CHANGE_CONFIG,
+        PARKING_CONFIG,
+        SOLAR_CONFIG,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -868,11 +1125,19 @@ def main():
     # the swath's bands (5 chip rows; the last 2), their first rows culled
     band_cases = [stitch_case(torch, stitch, kernel, buffer, r, SWATH[1] // kernel, 1, gen,
                               timed=False, culled_rows=z) for r, z in ((5, 2), (2, 0))]
-    emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases)
+    # the change path's grid (k256 + b128: side 1.5 k) and its bands of
+    # --max-rows 1024 (3 chip rows; 2 at the ends)
+    ck, cb, _ = CHANGE_CONFIG.serving_geometry
+    c_rows, c_cols = -(-CHANGE_SCENE[0] // ck), -(-CHANGE_SCENE[1] // ck)
+    change_shape = stitch_case(torch, stitch, ck, cb, c_rows, c_cols, 1, gen, timed=True)
+    change_bands = [stitch_case(torch, stitch, ck, cb, r, c_cols, 1, gen, timed=False)
+                    for r in (2, 3)]
+    emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases,
+         change=change_shape, change_bands=change_bands)
     # the engine's route: the same products and adds in the same order, so
     # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
-    cases = [small, main_shape] + band_cases
+    cases = [small, main_shape, change_shape] + band_cases + change_bands
     check(all(c["max_abs_err"] == 0.0 for c in cases),
           "hann_stitch(apply_window=True) is not bit-equal to its plain version")
     check(all(c["weighted_max_abs_err"] <= tol for c in cases),
@@ -987,11 +1252,26 @@ def main():
     train_fields, train_launches, train_step, train_preprocess = train_phase(torch, work, gen)
     emit("train", **train_fields)
 
+    # ---- change detection: the Siamese U-Net trained on npy chips, then
+    # its checkpoint served over a scene pair
+    change_train, change_ckpt, change_step = change_train_phase(
+        torch, work, CHANGE_CHIPS, CHANGE_CONFIG.kernel_size, CHANGE_CONFIG.batch_size,
+        CHANGE_STEPS)
+    emit("change_train", **change_train)
+    change, change_launches, change_scene = change_phase(
+        torch, predict, stitch, change_ckpt, work, CHANGE_SCENE, CHANGE_EDGE, CHANGE_MAX_ROWS,
+        CHANGE_CONFIG.serving_geometry)
+    emit("change", **change)
+    serving_launches.update(change_launches)
+
     # ---- where a warm scene's and a warm train step's device time goes
     emit("profile", what="scene", **device_profile(torch, run_dev))
     emit("profile", what="train_step", calls=3, **device_profile(torch, train_step, calls=3))
     emit("profile", what="preprocess", calls=5,
          **device_profile(torch, train_preprocess, calls=5))
+    emit("profile", what="change_train_step", calls=3,
+         **device_profile(torch, change_step, calls=3))
+    emit("profile", what="change_scene", **device_profile(torch, change_scene))
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -1003,7 +1283,10 @@ def main():
          "ms": main_shape["ms"], "device_ms": main_shape["device_ms"],
          "plain_ms": main_shape["plain_ms"],
          "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-         "library_ms": main_shape["library_ms"]},
+         "library_ms": main_shape["library_ms"],
+         "change_shape": {k: change_shape[k] for k in (
+             "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")}},
         {"name": "fused_preprocess", "route": "cuda",
          "source": "satellite_computervision_tpu_torch/csrc/fused_preprocess.cu",
          "replaces": "satellite_computervision_tpu/pallas/preprocess.py:135",

@@ -1,8 +1,8 @@
 """Shared convolutional building blocks (PyTorch, NCHW inside).
 
 Port of ``satellite_computervision_tpu/models/blocks.py`` (ConvBNAct,
-ConvBlock, EncoderBlock, DecoderBlock). Sub-module names follow the flax
-parameter tree (``Conv_0``, ``BatchNorm_0``, ``ConvTranspose_0``,
+ConvBlock, EncoderBlock, DecoderBlock, ASPP). Sub-module names follow the
+flax parameter tree (``Conv_0``, ``BatchNorm_0``, ``ConvTranspose_0``,
 ``affine_0_scale`` ...) so a ``state_dict`` key reads like the JAX path it
 came from (models/bridge.py maps one onto the other).
 
@@ -64,12 +64,16 @@ def _bn(ch: int, bn_momentum: float = BN_MOMENTUM) -> BatchNorm:
 
 
 class ConvBNAct(nn.Module):
-    """Conv2D(3x3, SAME) -> BatchNorm -> ReLU."""
+    """Conv2D(SAME, dilation) -> BatchNorm -> ReLU.
+
+    ``padding="same"`` pads ``dilation * (kernel_size - 1)`` in all, half
+    on each side, as flax's ``padding="SAME"`` with ``kernel_dilation``
+    does for the odd kernel sizes used here."""
 
     def __init__(self, in_ch: int, features: int, fold_bn: bool = False,
-                 bn_momentum: float = BN_MOMENTUM):
+                 bn_momentum: float = BN_MOMENTUM, kernel_size: int = 3, dilation: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, features, 3, padding="same")
+        self.Conv_0 = nn.Conv2d(in_ch, features, kernel_size, padding="same", dilation=dilation)
         self.BatchNorm_0 = None if fold_bn else _bn(features, bn_momentum)
 
     def forward(self, x):
@@ -155,3 +159,39 @@ class DecoderBlock(nn.Module):
                 x = getattr(self, f"BatchNorm_{i + 1}")(x)
             x = F.relu(x)
         return x
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling: parallel 1x1 and 3x3 dilated
+    (``rates``) conv->BN->relu branches, optionally a global-average-pool
+    branch (``image_pooling``), concatenated, then fused by a 1x1
+    conv->BN->relu.
+
+    Children are numbered in flax's creation order: ``ConvBNAct_0`` the
+    1x1 branch, ``ConvBNAct_1..len(rates)`` the dilated ones, then the
+    pool branch when present, then the fuse."""
+
+    def __init__(self, in_ch: int, features: int, rates=(3, 6, 12), image_pooling: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
+        super().__init__()
+        self.image_pooling = image_pooling
+        self.n_branches = 1 + len(rates)
+        cba = dict(bn_momentum=bn_momentum)
+        self.ConvBNAct_0 = ConvBNAct(in_ch, features, kernel_size=1, **cba)
+        for i, rate in enumerate(rates, start=1):
+            self.add_module(f"ConvBNAct_{i}", ConvBNAct(in_ch, features, dilation=rate, **cba))
+        fuse = self.n_branches + image_pooling
+        if image_pooling:
+            self.add_module(f"ConvBNAct_{self.n_branches}",
+                            ConvBNAct(in_ch, features, kernel_size=1, **cba))
+        self.add_module(f"ConvBNAct_{fuse}",
+                        ConvBNAct(features * fuse, features, kernel_size=1, **cba))
+        self.n_fuse = fuse
+
+    def forward(self, x):
+        branches = [getattr(self, f"ConvBNAct_{i}")(x) for i in range(self.n_branches)]
+        if self.image_pooling:
+            pooled = getattr(self, f"ConvBNAct_{self.n_branches}")(
+                x.mean(dim=(2, 3), keepdim=True))
+            branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
+        return getattr(self, f"ConvBNAct_{self.n_fuse}")(torch.cat(branches, dim=1))

@@ -1,9 +1,12 @@
-"""Weight bridge: flax UNet variables (nested dicts of numpy arrays) ->
-the port's ``state_dict``.
+"""Weight bridge: flax model variables (nested dicts of numpy arrays) ->
+the port's ``state_dict``, for the ``UNet`` and the ``SiameseUNet``.
 
 The port's module names follow the flax tree, so a torch key
 ``DecoderBlock_0.Conv_1.weight`` reads from
-``params["DecoderBlock_0"]["Conv_1"]["kernel"]``. What changes on the way:
+``params["DecoderBlock_0"]["Conv_1"]["kernel"]``. A tree of another
+architecture (a U-Net tree for a Siamese model, or the reverse) has
+leaves without a place and keys without a source, and raises. What
+changes on the way:
 
 - conv kernels go from HWIO to OIHW;
 - transposed-conv kernels are flipped in space and go from HWIO to

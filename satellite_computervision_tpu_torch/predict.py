@@ -9,14 +9,21 @@ Modes:
            (staging / compute / read-back threads), one GeoTIFF each
   patches: a directory of EE-exported TFRecord patches + mixer.json ->
            batched prediction -> EE-ingestable TFRecords
+  change:  a before and an after scene (.npy or GeoTIFF, same shape) ->
+           one engine pass over their 2C-band stack, the Siamese model
+           splitting each chip at C -> change probability GeoTIFF/COG
 
-The checkpoint is ``<ckpt>/best/model.pt`` (the port's format) or
+``--model`` picks the family (default: the config's, ``siamese`` for
+``--config change``); ``change`` mode serves the siamese family, the other
+modes the unet family. The checkpoint is ``<ckpt>/best/model.pt`` (the
+port's format, which records the architecture) or
 ``<ckpt>/best/state.msgpack`` (the JAX package's, built as the config's
-U-Net). On CUDA the model serves in bfloat16; on the CPU (``--device
-cpu``) in float32. A scene's output carries its input's nodata value as
-its GDAL_NODATA tag. Not ported yet: ``change`` mode and ``--model``
-(siamese, deeplab), ``--tune`` and tune tables (a ``<ckpt>/tune.json`` is
-ignored, with a note).
+model of that family). On CUDA the model serves in bfloat16; on the CPU
+(``--device cpu``) in float32. A scene's output (scene, sweep) carries its
+input's nodata value as its GDAL_NODATA tag; ``change`` writes its output
+as the JAX CLI does, with no tag. Not ported yet: ``--model deeplab``,
+``--tune`` and tune tables (a ``<ckpt>/tune.json`` is ignored, with a
+note).
 
 Examples::
 
@@ -30,6 +37,9 @@ Examples::
       --input scenes/ --ckpt runs/solar --fold-bn --outdir preds/ --prefetch 2
   python -m satellite_computervision_tpu_torch.predict patches \\
       --input exports/ --ckpt runs/solar --outdir preds/ --base solar_md
+  python -m satellite_computervision_tpu_torch.predict change --config change \\
+      --input-before before.npy --input-after after.npy --ckpt runs/change \\
+      --nodata 0 --cog --uint8 --predictor 2 --output change.tif
 """
 
 from __future__ import annotations
@@ -53,11 +63,14 @@ from satellite_computervision_tpu_torch.inference.batch import (
 )
 from satellite_computervision_tpu_torch.models import UNet, fold_unet
 from satellite_computervision_tpu_torch.train.checkpoint import (
+    Model,
+    arch_of,
     load_checkpoint,
     load_flax_weights,
     read_flax_checkpoint,
 )
 from satellite_computervision_tpu_torch.train.config import CONFIGS, SOLAR_CONFIG
+from satellite_computervision_tpu_torch.train.zoo import get_family
 
 
 def resolve_serving_geometry(cfg, args, ckpt_dir=None):
@@ -99,39 +112,47 @@ def load_scene(path, max_rows=None):
 
 
 def load_model(ckpt_dir: str, device, s2d=None, fold_bn: bool = False,
-               cfg=SOLAR_CONFIG) -> UNet:
+               cfg=SOLAR_CONFIG, arch: str = "unet") -> Model:
     """Restore ``<ckpt>/best`` for serving on ``device``: folded first if
-    asked (in float32), then bfloat16 and channels-last on CUDA, float32
-    on the CPU.
+    asked (in float32; the unet only), then bfloat16 and channels-last on
+    CUDA, float32 on the CPU.
 
-    ``best/model.pt`` (the port's format) rebuilds the saved ``UNet``;
-    ``s2d`` overrides its stem (a mismatching weight layout raises).
-    ``best/state.msgpack`` (the JAX package's) is loaded into ``cfg``'s
-    U-Net with the stem ``s2d`` or, when None, the config's; if the
-    weights do not fit that stem it retries once with the stem flipped
-    (an explicit ``s2d`` does not retry)."""
+    ``best/model.pt`` (the port's format) rebuilds the saved model, which
+    must be of the family ``arch``; for a unet ``s2d`` overrides its stem
+    (a mismatching weight layout raises). ``best/state.msgpack`` (the JAX
+    package's) is loaded into ``cfg``'s model of the family ``arch``: a
+    siamese as the zoo builds it; a unet with the stem ``s2d`` or, when
+    None, the config's, and if the weights do not fit that stem it retries
+    once with the stem flipped (an explicit ``s2d`` does not retry)."""
+    if fold_bn and arch != "unet":
+        raise ValueError("fold_bn supports the unet family only")
     best = os.path.join(ckpt_dir, "best")
     if os.path.exists(os.path.join(best, "state.msgpack")) and \
             not os.path.exists(os.path.join(best, "model.pt")):
         tree, meta = read_flax_checkpoint(best)
-        stem = bool(cfg.space_to_depth) if s2d is None else s2d
+        if arch != "unet":
+            model = load_flax_weights(get_family(arch).build(cfg), tree)
+        else:
+            stem = bool(cfg.space_to_depth) if s2d is None else s2d
 
-        def build(space_to_depth):
-            return UNet(len(cfg.bands), n_classes=cfg.num_classes,
-                        head="sigmoid" if cfg.num_classes == 1 else "softmax",
-                        threshold=cfg.threshold, space_to_depth=space_to_depth)
+            def build(space_to_depth):
+                return UNet(len(cfg.bands), n_classes=cfg.num_classes,
+                            head="sigmoid" if cfg.num_classes == 1 else "softmax",
+                            threshold=cfg.threshold, space_to_depth=space_to_depth)
 
-        try:
-            model = load_flax_weights(build(stem), tree)
-        except (KeyError, RuntimeError):
-            if s2d is not None:
-                raise
-            model = load_flax_weights(build(not stem), tree)
-            print(f"note: checkpoint stem differs from the config default — "
-                  f"serving space_to_depth={not stem}")
+            try:
+                model = load_flax_weights(build(stem), tree)
+            except (KeyError, RuntimeError):
+                if s2d is not None:
+                    raise
+                model = load_flax_weights(build(not stem), tree)
+                print(f"note: checkpoint stem differs from the config default — "
+                      f"serving space_to_depth={not stem}")
     else:
         model, meta = load_checkpoint(
-            ckpt_dir, **({} if s2d is None else {"space_to_depth": s2d}))
+            ckpt_dir, **({} if s2d is None or arch != "unet" else {"space_to_depth": s2d}))
+        if arch_of(model) != arch:
+            raise ValueError(f"{ckpt_dir} holds a {arch_of(model)} model, not a {arch}")
     print(f"restored checkpoint (meta: {json.dumps(meta)})")
     if fold_bn:
         model = fold_unet(model)
@@ -139,6 +160,47 @@ def load_model(ckpt_dir: str, device, s2d=None, fold_bn: bool = False,
         return model.to(device=device, dtype=torch.bfloat16,
                         memory_format=torch.channels_last)
     return model.to(device)
+
+
+def _uint8(probs: torch.Tensor) -> torch.Tensor:
+    """Probabilities x255 as uint8 (``--uint8``)."""
+    return (probs * 255.0).to(torch.uint8)
+
+
+def _change(args, cfg, model, device, comp_kw):
+    """Change mode: the before and after scenes ride one engine pass as a
+    2C-band stack; each chip batch is split back at C into the Siamese
+    model's two inputs. Culling (``--nodata``, by default the before
+    scene's tag) drops a chip only where both scenes are nodata."""
+    before, meta = load_scene(args.input_before)
+    after, _ = load_scene(args.input_after)
+    if before.shape != after.shape:
+        sys.exit(f"scene shapes differ: {before.shape} vs {after.shape}")
+    nb = before.shape[-1]
+    stack = np.concatenate([before, after], axis=-1)
+
+    def predict_pair(chips):
+        return model(chips[..., :nb], chips[..., nb:])["probs"]
+
+    kernel, buffer, batch, tile_mode, source = resolve_serving_geometry(cfg, args, args.ckpt)
+    print(f"serving geometry: k{kernel}+b{buffer} batch {batch} tile_mode={tile_mode} "
+          f"({source}) on {device}")
+    nodata = args.nodata if args.nodata is not None else meta.get("nodata")
+    engine = TiledInferenceEngine(
+        predict_pair, kernel=kernel, buffer=buffer, batch_size=batch, out_channels=1,
+        blend=args.blend, tile_mode=tile_mode, max_rows=args.max_rows, nodata=nodata,
+        output_transform=_uint8 if args.uint8 else None, device=device)
+    h, w = stack.shape[:2]
+    t0 = time.perf_counter()
+    pred = engine.predict_scene(stack).cpu().numpy()
+    out = args.output or "change.tif"
+    (write_cog if args.cog else write_geotiff)(
+        out, pred, transform=tuple(args.transform) if args.transform else meta.get("transform"),
+        crs=args.crs or meta.get("crs", ""), **comp_kw)
+    dt = time.perf_counter() - t0
+    print(f"wrote {out} shape={pred.shape} ({dt:.3f} s incl. write, "
+          f"{h * w / 1e6 / dt:.2f} MPix/s of scene pairs)")
+    return out
 
 
 def _sweep_paths(args):
@@ -252,12 +314,17 @@ def _sweep(args, cfg, engine_kw, comp_kw):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("mode", choices=["scene", "sweep", "patches"])
+    ap.add_argument("mode", choices=["scene", "change", "sweep", "patches"])
     ap.add_argument("--input", help="scene .npy or GeoTIFF; sweep: a directory or glob "
                     "of .npy/.tif scenes; patches: an export directory or glob")
+    ap.add_argument("--input-before", help="change mode: the before scene (.npy or GeoTIFF)")
+    ap.add_argument("--input-after", help="change mode: the after scene, of the same shape")
     ap.add_argument("--ckpt", required=True, help="checkpoint directory (reads <ckpt>/best)")
     ap.add_argument("--config", choices=sorted(CONFIGS), default="solar")
-    ap.add_argument("--output", default="prediction.tif", help="scene mode: output .tif path")
+    ap.add_argument("--model", choices=["unet", "deeplab", "siamese"], default=None,
+                    help="model family (default: the config's)")
+    ap.add_argument("--output", help="scene/change mode: output .tif path (default "
+                    "prediction.tif / change.tif)")
     ap.add_argument("--outdir", help="sweep/patches mode: output directory")
     ap.add_argument("--base", default="pred", help="patches mode: output basename")
     ap.add_argument("--kernel", type=int, default=None,
@@ -276,7 +343,8 @@ def main(argv=None):
     ap.add_argument("--nodata", type=float, default=None,
                     help="cull chips whose full window is this value in every band "
                     "(accepts 'nan'); exact on valid pixels. Defaults to the input "
-                    "GeoTIFF's nodata tag; chips tile mode only")
+                    "GeoTIFF's nodata tag (change: the before scene's); chips tile "
+                    "mode only")
     ap.add_argument("--cog", action="store_true", help="write a Cloud-Optimized GeoTIFF")
     ap.add_argument("--compress", choices=["none", "deflate", "lzw"], default="deflate",
                     help="output compression; lzw (+ --predictor 2) is GDAL's common "
@@ -316,12 +384,25 @@ def main(argv=None):
     if args.predictor == 3 and args.uint8:
         ap.error("--predictor 3 (float byte-plane differencing) applies to float "
                  "output; use --predictor 2 with --uint8")
-    if not args.input:
+    cfg = CONFIGS[args.config]
+    arch = args.model or ("siamese" if cfg.family == "siamese" else "unet")
+    if arch == "deeplab":
+        sys.exit("--model deeplab is not ported yet")
+    if args.fold_bn and arch != "unet":
+        sys.exit("--fold-bn currently supports the unet family only")
+    if (args.mode == "change") != (arch == "siamese"):
+        sys.exit(f"{args.mode} mode serves the "
+                 f"{'siamese' if args.mode == 'change' else 'unet'} family, not {arch}")
+    if args.mode == "change":
+        if not (args.input_before and args.input_after):
+            sys.exit("change mode needs --input-before and --input-after")
+    elif not args.input:
         sys.exit("--input is required")
     comp_kw = dict(compress=args.compress, predictor=args.predictor)
     device = resolve_device(args.device)
-    cfg = CONFIGS[args.config]
-    model = load_model(args.ckpt, device, args.s2d, args.fold_bn, cfg)
+    model = load_model(args.ckpt, device, args.s2d, args.fold_bn, cfg, arch)
+    if args.mode == "change":
+        return _change(args, cfg, model, device, comp_kw)
 
     def predict(chips):
         return model(chips)["probs"]
@@ -350,7 +431,7 @@ def main(argv=None):
         # S2D halves the grid before the trunk: whole-scene padding covers
         # one more factor of 2
         whole_multiple=64 if model.space_to_depth else 32,
-        output_transform=(lambda p: (p * 255.0).to(torch.uint8)) if args.uint8 else None,
+        output_transform=_uint8 if args.uint8 else None,
     )
     print(f"serving geometry: k{kernel}+b{buffer} batch {batch} tile_mode={tile_mode} "
           f"({source}) on {device}")
@@ -360,7 +441,7 @@ def main(argv=None):
     scene, meta = load_scene(args.input, args.max_rows)
     nodata = args.nodata if args.nodata is not None else meta.get("nodata")
     engine = TiledInferenceEngine(nodata=nodata, **engine_kw)
-    out = args.output
+    out = args.output or "prediction.tif"
     out_tf = tuple(args.transform) if args.transform else meta.get("transform")
     out_crs = args.crs or meta.get("crs", "")
     h, w = scene.shape[:2]

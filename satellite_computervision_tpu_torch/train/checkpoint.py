@@ -2,18 +2,21 @@
 
 A checkpoint is one file ``<dir>/<which>/model.pt`` (``which`` is
 ``best`` or ``latest``, as the JAX package's ``<dir>/best``): one
-``torch.save`` of ``{"model_kwargs", "state_dict", "meta"}`` plus, when a
-training state is saved, ``"optimizer"`` (the optimizer's
-``state_dict``) and ``"step"``. ``model_kwargs`` are the ``UNet``
-constructor arguments (``UNet.kwargs``); ``meta`` is a JSON-able dict
-``{"step", "metrics"}``. ``predict.load_model`` reads ``<dir>/best``.
+``torch.save`` of ``{"arch", "model_kwargs", "state_dict", "meta"}`` plus,
+when a training state is saved, ``"optimizer"`` (the optimizer's
+``state_dict``) and ``"step"``. ``arch`` names the model class
+(``"unet"`` or ``"siamese"``, :data:`ARCHS`); a file without it (written
+before the Siamese model was ported) holds a ``UNet``. ``model_kwargs``
+are the constructor arguments (the model's ``kwargs``); ``meta`` is a
+JSON-able dict ``{"step", "metrics"}``. ``predict.load_model`` reads
+``<dir>/best``.
 
 The JAX package's msgpack checkpoints (``<dir>/state.msgpack`` from
 ``flax.serialization.to_bytes`` plus ``meta.json``) are read by
 :func:`read_flax_checkpoint` through the port's own decoder
 (``train/flax_msgpack.py``; no ``msgpack``, ``flax`` or ``jax`` import),
 and :func:`load_flax_weights` puts their ``params``/``batch_stats`` into a
-``UNet`` with ``models.bridge.flax_to_torch``; ``opt_state`` is decoded
+model of the port with ``models.bridge.flax_to_torch``; ``opt_state`` is decoded
 but not used. Orbax checkpoints are not ported.
 """
 
@@ -21,20 +24,32 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
+from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet
 from satellite_computervision_tpu_torch.train import flax_msgpack
+
+Model = Union[UNet, SiameseUNet]
+ARCHS = {"unet": UNet, "siamese": SiameseUNet}
+
+
+def arch_of(model: Model) -> str:
+    """The ``arch`` name of a model of the port (:data:`ARCHS`)."""
+    for name, cls in ARCHS.items():
+        if isinstance(model, cls):
+            return name
+    raise TypeError(f"no checkpoint arch for {type(model).__name__}")
 
 
 def _file(path: str, which: str) -> str:
     return os.path.join(path, which, "model.pt")
 
 
-def save_checkpoint(path: str, model: UNet, meta: Optional[Dict] = None, which: str = "best",
+def save_checkpoint(path: str, model: Model, meta: Optional[Dict] = None, which: str = "best",
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     step: Optional[int] = None) -> str:
     """Write ``model`` (weights as float32 on the CPU), and the optimizer
@@ -44,7 +59,8 @@ def save_checkpoint(path: str, model: UNet, meta: Optional[Dict] = None, which: 
     os.makedirs(os.path.dirname(out), exist_ok=True)
     state = {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
              for k, v in model.state_dict().items()}
-    blob = {"model_kwargs": dict(model.kwargs), "state_dict": state, "meta": dict(meta or {})}
+    blob = {"arch": arch_of(model), "model_kwargs": dict(model.kwargs), "state_dict": state,
+            "meta": dict(meta or {})}
     if optimizer is not None:
         blob["optimizer"] = optimizer.state_dict()
     if step is not None:
@@ -58,12 +74,13 @@ def _read(path: str, which: str) -> Dict:
     return torch.load(_file(path, which), map_location="cpu", weights_only=True)
 
 
-def load_checkpoint(path: str, which: str = "best", **overrides) -> Tuple[UNet, Dict]:
-    """Rebuild the ``UNet`` saved at ``path/<which>/model.pt`` (float32,
-    CPU, eval mode) and return ``(model, meta)``. ``overrides`` replace
-    saved constructor arguments; a mismatching weight layout raises."""
+def load_checkpoint(path: str, which: str = "best", **overrides) -> Tuple[Model, Dict]:
+    """Rebuild the model saved at ``path/<which>/model.pt`` (its ``arch``,
+    ``UNet`` when the file names none; float32, CPU, eval mode) and return
+    ``(model, meta)``. ``overrides`` replace saved constructor arguments;
+    a mismatching weight layout raises."""
     blob = _read(path, which)
-    model = UNet(**{**blob["model_kwargs"], **overrides})
+    model = ARCHS[blob.get("arch", "unet")](**{**blob["model_kwargs"], **overrides})
     model.load_state_dict(blob["state_dict"])
     return model.eval(), blob["meta"]
 
@@ -84,7 +101,7 @@ def read_flax_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict]:
     return tree, meta
 
 
-def load_flax_weights(model: UNet, tree: Dict[str, Any]) -> UNet:
+def load_flax_weights(model: Model, tree: Dict[str, Any]) -> Model:
     """Load a flax state tree's ``params``/``batch_stats`` into ``model``
     (eval mode). A tree of another architecture raises ``KeyError`` (a
     missing or unused leaf) or ``RuntimeError`` (a shape mismatch)."""

@@ -125,7 +125,32 @@ PARKING_CONFIG = TrainConfig(
     threshold=0.5,
 )
 
+# Sentinel-2 before/after change detection with the Siamese U-Net
+# (make_siamese_unet utils/model_tools.py:638-663; chips fed by
+# SiameseDataGenerator utils/processing.py:757-892, /10000 divisor,
+# binary any-class>1 labels; scene assembly = run_local's 4-band pairs,
+# utils/pc_tools.py:620-654).
+CHANGE_CONFIG = TrainConfig(
+    name="change",
+    bands=("B02", "B03", "B04", "B08"),
+    response="change",
+    kernel_size=256,
+    kernel_buffer=128,
+    batch_size=8,
+    epochs=20,
+    learning_rate=9e-4,
+    train_size=4000,
+    eval_size=1000,
+    shuffle_buffer=4000,
+    loss="weighted_bce",
+    loss_kwargs={"pos_weight": 4.0},
+    num_classes=1,
+    threshold=0.5,
+    family="siamese",
+)
+
 CONFIGS = {
     "solar": SOLAR_CONFIG,
     "parking": PARKING_CONFIG,
+    "change": CHANGE_CONFIG,
 }

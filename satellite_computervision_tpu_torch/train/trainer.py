@@ -7,7 +7,9 @@ Port of ``satellite_computervision_tpu/train/trainer.py``:
 - a train step is forward in train mode, loss, backward, the optimizer
   update (BN running statistics update in the forward) and the step's
   confusion matrix from the ``classes`` head against ``y > 0.5`` (or the
-  argmax of one-hot labels);
+  argmax of one-hot labels); a multi-input family (the Siamese model's
+  before/after) passes ``x`` as a tuple or list of its positional inputs,
+  and a tuple or list ``y`` (multi-head targets) gets no confusion matrix;
 - loss and confusion matrix are summed on the device: one host sync per
   epoch or evaluation, not per step.
 
@@ -56,6 +58,18 @@ def _labels_int(y: torch.Tensor) -> torch.Tensor:
     return torch.argmax(y, -1) if y.shape[-1] > 1 else (y[..., 0] > 0.5)
 
 
+def _inputs(x) -> tuple:
+    """The model's positional inputs: ``x`` itself, or the items of a tuple
+    or list ``x`` (multi-input families)."""
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _confusion(out, y, class_from, num_classes, device):
+    if isinstance(out, dict) and class_from in out and not isinstance(y, (tuple, list)):
+        return metrics_lib.confusion_matrix(_labels_int(y), out[class_from], num_classes)
+    return metrics_lib.init_metric_state(num_classes, device)
+
+
 def make_train_step(loss_fn: Callable, pred_key: Optional[str] = "logits",
                     num_classes: int = 2, class_from: str = "classes",
                     compute_dtype=None) -> Callable:
@@ -65,20 +79,18 @@ def make_train_step(loss_fn: Callable, pred_key: Optional[str] = "logits",
 
     def step(state: TrainState, batch):
         x, y = batch
+        inputs = _inputs(x)
         model = state.model
         model.train()
-        with _autocast(x, compute_dtype):
-            out = model(x)
+        with _autocast(inputs[0], compute_dtype):
+            out = model(*inputs)
         preds = out[pred_key] if isinstance(out, dict) and pred_key else out
         loss = loss_fn(y, preds)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        if isinstance(out, dict) and class_from in out:
-            cm = metrics_lib.confusion_matrix(_labels_int(y), out[class_from], num_classes)
-        else:
-            cm = metrics_lib.init_metric_state(num_classes, y.device)
+        cm = _confusion(out, y, class_from, num_classes, inputs[0].device)
         return {"loss": loss.detach(), "cm": cm}
 
     return step
@@ -92,16 +104,20 @@ def make_eval_step(loss_fn: Callable, pred_key: Optional[str] = "logits",
 
     def step(state: TrainState, batch):
         x, y = batch
+        inputs = _inputs(x)
         model = state.model
         model.eval()
-        with torch.no_grad(), _autocast(x, compute_dtype):
-            out = model(x)
+        with torch.no_grad(), _autocast(inputs[0], compute_dtype):
+            out = model(*inputs)
         preds = out[pred_key] if isinstance(out, dict) and pred_key else out
         with torch.no_grad():
             loss = loss_fn(y, preds)
-        y_hat = out[class_from] if isinstance(out, dict) and class_from in out else preds
-        return {"loss": loss, "cm": metrics_lib.confusion_matrix(_labels_int(y), y_hat,
-                                                                 num_classes)}
+        if isinstance(y, (tuple, list)):
+            cm = metrics_lib.init_metric_state(num_classes, inputs[0].device)
+        else:
+            y_hat = out[class_from] if isinstance(out, dict) and class_from in out else preds
+            cm = metrics_lib.confusion_matrix(_labels_int(y), y_hat, num_classes)
+        return {"loss": loss, "cm": cm}
 
     return step
 

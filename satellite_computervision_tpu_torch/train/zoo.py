@@ -1,10 +1,11 @@
 """Model-zoo registry: a model family's builder, example inputs and default
 loss, so the training CLI builds through one place.
 
-Port of ``satellite_computervision_tpu/train/zoo.py``, the ``unet`` family
-only (it covers the ``solar`` and ``parking`` configs); the siamese,
-ConvLSTM, hybrid, ACNN and DeepLab families, and the weighted-CCE loss
-that hybrid and ACNN train with, are not ported yet.
+Port of ``satellite_computervision_tpu/train/zoo.py``: the ``unet``
+family (the ``solar`` and ``parking`` configs) and the ``siamese`` family
+(the ``change`` config; two inputs, before and after). The ConvLSTM,
+LSTM autoencoder, hybrid, hierarchical, ACNN and DeepLab families, and the
+weighted-CCE loss that hybrid and ACNN train with, are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +47,14 @@ def _build_unet(cfg=None, **kw):
     return UNet(in_channels, n_classes=n, **kw)
 
 
+def _build_siamese(cfg=None, **kw):
+    from satellite_computervision_tpu_torch.models import SiameseUNet
+
+    kw.setdefault("threshold", cfg.threshold if cfg else 0.5)
+    in_channels = kw.pop("in_channels", len(cfg.bands) if cfg else 4)
+    return SiameseUNet(in_channels, **kw)
+
+
 def _img(cfg):
     k = cfg.kernel_size if cfg else 32
     return np.zeros((1, k, k, len(cfg.bands) if cfg else 4), np.float32)
@@ -56,6 +65,11 @@ FAMILIES = {
         "unet", _build_unet,
         lambda cfg: (_img(cfg),),
         _bce,  # every unet preset, multi-class too, as the JAX zoo trains it
+    ),
+    "siamese": Family(
+        "siamese", _build_siamese,
+        lambda cfg: (_img(cfg), _img(cfg)),  # before, after
+        _bce,
     ),
 }
 

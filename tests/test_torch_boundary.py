@@ -54,8 +54,8 @@ print("ok", len({MODULES!r}))
     assert res.stdout.split() == ["ok", str(len(MODULES))]
 
 
-@pytest.mark.parametrize("path", sorted(ROOT.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT if ROOT in p.parents else ROOT.parent)))
 def test_no_jax_import_in_source(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -101,5 +101,6 @@ def test_batch_prediction_defaults_to_cuda(no_cuda, tmp_path):
 
 def test_new_modules_are_covered():
     for name in ("inference.staging", "inference.batch", "inference.mixer",
-                 "inference.writers", "train.flax_msgpack"):
+                 "inference.writers", "train.flax_msgpack", "models.siamese",
+                 "data.chip_generators"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES

@@ -1,9 +1,11 @@
-"""chip_smoke.py's serving phases (swath, sweep, whole, patches) run end
-to end on the CPU at a tiny size with a narrow U-Net, so the smoke run's
+"""chip_smoke.py's serving phases (swath, sweep, whole, patches) and its
+change-detection phases (change_train, change) run end to end on the CPU
+at a tiny size with a narrow U-Net / Siamese U-Net, so the smoke run's
 control flow and checks are exercised before it reaches a card. On the
 CPU ``hann_stitch`` runs its plain version, whose calls are counted here
 as the kernel's launches would be."""
 
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -15,7 +17,9 @@ from satellite_computervision_tpu_torch import predict
 from satellite_computervision_tpu_torch.inference import tiles
 from satellite_computervision_tpu_torch.kernels import stitch
 from satellite_computervision_tpu_torch.models import UNet
+from satellite_computervision_tpu_torch.train import zoo
 from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
+from satellite_computervision_tpu_torch.train.config import CONFIGS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLAGS = ["--device", "cpu", "--kernel", "16", "--buffer", "8", "--batch-size", "4"]
@@ -66,3 +70,28 @@ def test_sweep_whole_and_patches_phases_on_cpu(smoke):
     patches = cs.patches_phase(torch, predict, ckpt, work, 2, 3,
                                ["--device", "cpu", "--batch-size", "4"])
     assert patches["records"] == 6 and patches["mixer"]
+
+
+def test_change_phases_on_cpu(smoke, monkeypatch):
+    """change_train: the train CLI on 8 chip triples of 40² (trimmed to
+    the 32² tile), 2 steps of 4; change: a 100 x 60 pair whose left 20
+    columns are nodata in both, served unbanded and banded."""
+    cs, _, work = smoke
+    monkeypatch.setitem(CONFIGS, "change", dataclasses.replace(
+        CONFIGS["change"], kernel_size=32, kernel_buffer=8, batch_size=4, serve_kernel=16))
+    fam = zoo.FAMILIES["siamese"]
+    monkeypatch.setitem(zoo.FAMILIES, "siamese", dataclasses.replace(
+        fam, build=lambda cfg, **kw: fam.build(cfg, filters=(4, 8), factors=(2, 2), **kw)))
+    fields, ckpt, step = cs.change_train_phase(torch, work, 8, 40, 4, 2, ["--device", "cpu"],
+                                               device="cpu")
+    step()
+    assert fields["arch"] == "siamese" and fields["batch"] == [4, 32, 32, 4]
+    assert len(fields["history"]) == 1 and fields["peak_mem_gib"] is None
+    fields, launches, run_scene = cs.change_phase(
+        torch, predict, stitch, ckpt, work, (100, 60, 4), 20, 56, GEOMETRY, FLAGS, device="cpu")
+    # 7 x 4 chips, the first column culled; bands of 3 chip rows advancing 1
+    assert fields["grid"] == [7, 4] and fields["kept_chips"] == 21
+    assert launches == fields["expected_launches"] == {"change": 1, "change_banded": 7}
+    assert fields["zero_cols"] == 12 and fields["output_shape"] == [100, 60, 1]
+    assert all(e == 0.0 for e in fields["max_abs_err_banded_culled_vs_unbanded_on_valid"].values())
+    run_scene()

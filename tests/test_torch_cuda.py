@@ -15,7 +15,7 @@ import torch
 from satellite_computervision_tpu_torch.data.pipeline import make_preprocess_fn
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 from satellite_computervision_tpu_torch.kernels import preprocess, stitch
-from satellite_computervision_tpu_torch.models import UNet
+from satellite_computervision_tpu_torch.models import SiameseUNet, UNet
 
 pytestmark = pytest.mark.cuda
 
@@ -34,6 +34,7 @@ def cuda():
     (16, 8, 3, 4, 2),     # side < 2k
     (16, 16, 3, 4, 2),    # side == 2k
     (512, 128, 4, 4, 1),  # the solar serving shape
+    (256, 128, 8, 8, 1),  # the change serving shape: side 1.5 k
 ])
 def test_hann_stitch_kernel_matches_plain(cuda, k, buf, rows, cols, c_out):
     side = k + buf
@@ -56,6 +57,7 @@ def test_hann_stitch_kernel_matches_plain(cuda, k, buf, rows, cols, c_out):
     (15, 6, 2, 3, 1),     # k*C not a multiple of 4: the scalar path
     (16, 8, 1, 1, 3),     # one chip; k*C a multiple of 4, side*C not
     (512, 128, 4, 4, 1),  # the solar serving shape
+    (256, 128, 8, 8, 1),  # the change serving shape: side 1.5 k
 ])
 def test_hann_stitch_kernel_bit_equal(cuda, k, buf, rows, cols, c_out, apply_window):
     side = k + buf
@@ -295,3 +297,44 @@ def test_predict_scenes_staging_on_card_equals_predict_scene(cuda, small_unet, p
     for scene, out in zip(scenes, got):
         assert isinstance(out, np.ndarray)
         np.testing.assert_array_equal(out, engine.predict_scene(scene).cpu().numpy())
+
+
+@pytest.fixture
+def small_siamese():
+    torch.manual_seed(0)
+    return SiameseUNet(4, filters=(8, 16), factors=(2, 2)).eval()
+
+
+def test_siamese_forward_on_card_matches_cpu(cuda, small_siamese):
+    """The shared towers, the dilated ASPP and the decoder on the card
+    (float32, TF32 off) against the CPU, within 1e-4 x max|logit|."""
+    gen = torch.Generator().manual_seed(1)
+    before = torch.rand((4, 48, 48, 4), generator=gen)
+    after = before + 0.3 * torch.rand((4, 48, 48, 4), generator=gen)
+    with torch.no_grad():
+        want = small_siamese(before, after)["logits"]
+        got = small_siamese.to(cuda)(before.to(cuda), after.to(cuda))["logits"].cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(want.abs().max().item(), 1.0))
+
+
+@pytest.mark.parametrize("max_rows", [None, 56], ids=["unbanded", "banded"])
+def test_change_engine_on_card_matches_cpu(cuda, small_siamese, max_rows):
+    """A before/after pair as one 8-band stack through the engine, each
+    chip batch split at 4 into the two towers, culled, hann-blended by the
+    CUDA kernel: one launch per scene, or per band holding a kept chip."""
+    rng = np.random.default_rng(5)
+    stack = rng.uniform(0.1, 1, (150, 70, 8)).astype(np.float32)
+    stack[:, :30] = 0.0  # both scenes nodata: the first chip column is culled
+    kw = dict(kernel=16, buffer=8, batch_size=4, blend="hann", nodata=0.0, max_rows=max_rows)
+
+    def engine(model, device):
+        model = model.to(device)
+        return TiledInferenceEngine(lambda c: model(c[..., :4], c[..., 4:])["probs"],
+                                    device=device, **kw)
+
+    before = stitch.hann_stitch.launches
+    got = engine(small_siamese, cuda).predict_scene(stack).cpu()
+    # 10 chip rows: one scene, or 10 bands of 3 rows advancing 1
+    assert stitch.hann_stitch.launches == before + (1 if max_rows is None else 10)
+    want = engine(small_siamese, "cpu").predict_scene(stack)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

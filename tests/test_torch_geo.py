@@ -67,11 +67,12 @@ def test_cog_and_stream_writer_read_back_in_jax(tmp_path, rng):
     np.testing.assert_array_equal(jax_geo.read_geotiff(strip)[0], img)
 
 
-@pytest.mark.parametrize("name", ["solar", "parking"])
+@pytest.mark.parametrize("name", ["solar", "parking", "change"])
 def test_configs_match_jax(name):
     ours, theirs = config.CONFIGS[name], jax_config.CONFIGS[name]
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert ours.serving_geometry == theirs.serving_geometry
+    assert ours.training_geometry == theirs.training_geometry
 
 
 def test_cog_stream_writer_matches_bulk_cog_and_jax(tmp_path, rng):
