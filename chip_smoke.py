@@ -12,8 +12,8 @@ line):
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at a small shape and at the shape its path gives it (``hann_stitch`` on
    the engine's route, raw predictions with the window applied in the
-   kernel, bit-equal, and on pre-weighted chips, at the solar and the
-   change serving grids; ``fused_preprocess`` also
+   kernel, bit-equal, and on pre-weighted chips, at the solar, the change
+   and the parking serving grids; ``fused_preprocess`` also
    with a NaN plane, negative and zero contrast and every flip/rotation,
    and at the parking preset's 16 x 512² x 4 chips, whose rows do not fit
    in shared memory: the kernel's streamed route; ``hann_stitch`` also at
@@ -33,10 +33,11 @@ line):
    2700 rows, left 640 columns) through the ``predict`` CLI read lazily,
    banded (``--max-rows 2688``), culled, written as a uint8 COG with
    predictor 2; ``hann_stitch`` launches against the bands holding a kept
-   chip (from ``chip_validity``); the output's dtype, shape, georeferencing,
-   nodata tag, overview and culled zeros; then the engine API banded +
-   culled against one unbanded, unculled run on the valid pixels, with
-   forwards counted and peak device memory.
+   chip (from ``chip_validity``); the output's dtype, shape,
+   georeferencing, no nodata tag (the JAX CLI writes none), overview and
+   culled zeros; then the engine API banded + culled against one
+   unbanded, unculled run on the valid pixels, with forwards counted and
+   peak device memory.
 6. ``sweep``: four 1920² x 6 ``.npy`` scenes (one half nodata) through
    ``predict sweep --prefetch 2 --nodata 0``, every output against
    ``engine.predict_scene``; the engine's pipelined ``predict_scenes``
@@ -72,10 +73,32 @@ line):
    CPU; the engine API banded + culled against one unbanded, unculled run
    on the valid pixels (float32 and bf16); CLI seconds, MPix/s of scene
    pairs and the forward's time per 8-chip batch.
-10. ``profile``: one warm scene, three warm train steps, five warm
-   ``make_preprocess_fn`` calls, three warm change train steps and one
-   warm change pair under ``torch.profiler``: device time by kernel, host
-   time by op and the device's busy share.
+10. ``parking_train``: the parking training path at full
+   ``PARKING_CONFIG`` width (DeepLab v3+, ResNet-50 stages 3/4/6/3, ASPP
+   of 256 at rates 6/12/18 with image pooling, R/G/B, one sigmoid class)
+   through ``python -m satellite_computervision_tpu_torch.train --config
+   parking --model deeplab`` on seeded EE-schema GZIP TFRecords of 512²
+   chips (bright "lots" on noise): batch 16, bf16 autocast, weighted BCE
+   with pos_weight 20, Adam 9e-4, 6 steps and 2 evals, the backbone
+   warm-started by ``--torch-weights`` from a torchvision-layout ``.pth``
+   written by ``export_torch_resnet_weights``; the loss finite,
+   ``best/model.pt`` of ``arch`` deeplab; one step on the card against
+   the CPU (the loss in float32, the gradients in float64); the warm step,
+   chips/s and peak memory.
+11. ``parking``: that checkpoint served over a 4096² x 3 float32 GeoTIFF
+   through ``predict scene --config parking --model deeplab --cog --uint8
+   --predictor 2`` (k512 + b256, batch 16, hann, bf16, BN unfolded):
+   ``hann_stitch`` launched once, the output's shape, dtype,
+   georeferencing and absent nodata tag, one chip's float32 forward on the
+   card against the CPU, the forward per 16-chip batch; then ``--tune``
+   (the table written with the card's name, read back by a serve without
+   flags, which takes the winner) and ``python -m
+   satellite_computervision_tpu_torch.evaluate`` on the eval TFRecords.
+12. ``profile``: one warm scene, three warm train steps, five warm
+   ``make_preprocess_fn`` calls, three warm change train steps, one warm
+   change pair, one warm parking scene and three warm DeepLab train steps
+   under ``torch.profiler``: device time by kernel, host time by op and
+   the device's busy share.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -105,6 +128,11 @@ TRAIN_STEPS, TRAIN_EPOCHS = 3, 2  # steps per epoch; an eval ends each epoch
 # served pair (nodata in the left columns of both) and its band height
 CHANGE_CHIPS, CHANGE_STEPS = 64, 6
 CHANGE_SCENE, CHANGE_EDGE, CHANGE_MAX_ROWS = (2048, 2048, 4), 512, 1024
+# parking: TFRecord files x chips (512²) of the training run, plus one
+# eval file of as many; steps per epoch and epochs (an eval ends each);
+# the served scene (4096² x 3: a large part of a NAIP quarter-quad at 0.6 m)
+PARKING_FILES, PARKING_CHIPS, PARKING_STEPS, PARKING_EPOCHS = 2, 16, 3, 2
+PARKING_SCENE = (4096, 4096, 3)
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -464,7 +492,7 @@ def swath_phase(torch, predict, stitch, ckpt, work, shape, edge_rows, edge_cols,
     check(res.dtype == np.uint8 and pred.shape == (h, w, 1), f"output {res.dtype} {pred.shape}")
     check("32617" in res.meta.get("crs", "") and tuple(res.meta["transform"]) == tf,
           f"georeferencing lost: {res.meta}")
-    check(res.nodata == 0.0, f"nodata tag lost: {res.nodata}")
+    check(res.nodata is None, f"a nodata tag the JAX CLI does not write: {res.nodata}")
     over = GeoTiffScene(out, page=1)
     check(over.shape[:2] == (h // 2, w // 2), f"overview page {over.shape}")
     # pixels that only culled chips reach stay 0: above the first kept
@@ -1080,6 +1108,270 @@ def change_phase(torch, predict, stitch, ckpt, work, shape, edge_cols, max_rows,
     return fields, launches, run_scene
 
 
+def parking_train_phase(torch, work, n_files, per_file, batch, steps, epochs, extra_flags=(),
+                        seed=SEED, device="cuda"):
+    """The parking training path through the train CLI (``--config
+    parking --model deeplab``) on synthetic EE-schema TFRecords of
+    ``n_files`` x ``per_file`` chips plus one eval file of ``per_file``,
+    warm-started by ``--torch-weights`` from a torchvision-layout ``.pth``
+    that ``export_torch_resnet_weights`` wrote from a seeded model; one
+    step on ``device`` (TF32 off) against the CPU from the same weights
+    and batch, in float32 (the loss) and float64 (the gradients); the warm
+    step. Returns (fields, checkpoint, eval
+    glob, a warm train step)."""
+    from satellite_computervision_tpu_torch.data.pipeline import (
+        get_eval_dataset,
+        make_preprocess_fn,
+    )
+    from satellite_computervision_tpu_torch.models.deeplab import (
+        export_torch_resnet_weights,
+        torchvision_keys,
+    )
+    from satellite_computervision_tpu_torch.models.unet import flax_init_
+    from satellite_computervision_tpu_torch.train import __main__ as train_cli
+    from satellite_computervision_tpu_torch.train.checkpoint import build_empty
+    from satellite_computervision_tpu_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    cfg = train_cli.CONFIGS["parking"]
+    k, bands = cfg.kernel_size, list(cfg.bands)
+    names = bands + [cfg.response]
+    data = os.path.join(work, "parking_tfrecords")
+    os.makedirs(data, exist_ok=True)
+    t0 = time.perf_counter()
+    train_files = [os.path.join(data, f"train-{i}.tfrecord.gz") for i in range(n_files)]
+    eval_file = os.path.join(data, "eval-0.tfrecord.gz")
+    for i, path in enumerate(train_files + [eval_file]):
+        synthesize_chips(path, per_file, bands, cfg.response, k, seed + 80 + i)
+    synth_s = time.perf_counter() - t0
+
+    # a "pretrained" backbone: a seeded model's, written as torchvision writes it
+    family = get_family("deeplab")
+    donor = flax_init_(family.build(cfg), torch.Generator().manual_seed(seed + 90))
+    pth = os.path.join(work, "resnet_backbone.pth")
+    exported = export_torch_resnet_weights(donor, pth)
+    n_backbone = len(torchvision_keys(donor))
+
+    ckpt = os.path.join(work, "parking_ckpt")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    lr = cfg.learning_rate
+    trainer, text, cli_s = run_cli(train_cli, [
+        "--config", "parking", "--model", "deeplab", "--train", os.path.join(data, "train-*"),
+        "--eval", eval_file, "--ckpt", ckpt, "--epochs", str(epochs), "--steps-per-epoch",
+        str(steps), "--batch-size", str(batch), "--torch-weights", pth, *extra_flags])
+    sync(device)
+    check(f"({n_backbone} tensors)" in text,
+          f"--torch-weights did not load the {n_backbone} backbone tensors")
+    check(trainer.state.step == steps * epochs, f"{trainer.state.step} steps")
+    losses = [r[part]["loss"] for r in trainer.history for part in ("train", "val")]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    blob = torch.load(os.path.join(ckpt, "best", "model.pt"), map_location="cpu",
+                      weights_only=True)
+    check(blob.get("arch") == "deeplab", f"best/model.pt arch {blob.get('arch')!r}")
+    model = trainer.state.model
+    # Adam moves a weight by at most a few lr a step: the trained stem is
+    # the exported one plus the run's updates
+    stem_moved = (model.backbone.stem_conv.weight.detach().float().cpu()
+                  - exported["conv1.weight"]).abs().max().item()
+    check(stem_moved <= 4 * lr * steps * epochs,
+          f"the stem moved {stem_moved} from the warm-start weights")
+
+    # ---- one step on the device (TF32 off) against the CPU: the trained
+    # weights, the top-left 256² of the eval file's first 2 chips. In
+    # float32 the loss is held; the gradients are held in float64, because
+    # in float32 they stray by up to ~1e-2 x max|grad| on either device:
+    # a ReLU input within rounding of 0 passes or stops a gradient term,
+    # and the image-pooling BN normalizes 2 values per channel
+    preprocess = make_preprocess_fn(bands, cfg.response, axes=cfg.axes, splits=cfg.splits,
+                                    device=device)
+    raw = next(iter(get_eval_dataset([eval_file], names, kernel_size=k, batch_size=batch,
+                                     device=device)))
+    x, y = preprocess(raw, train=False)
+    side = min(k, 256)
+    x2, y2 = x[:2, :side, :side].float().cpu(), y[:2, :side, :side].float().cpu()
+    state = {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
+    loss_fn, pred_key = family.loss(cfg)
+    step_fn = make_train_step(loss_fn, pred_key)
+    compared = {}
+    for dtype in (torch.float32, torch.float64):
+        results = []
+        for dev in ("cpu", device):
+            ref = build_empty(family.build, cfg)
+            ref.load_state_dict({n: t.clone() for n, t in state.items()}, assign=True)
+            ref = ref.to(dev, dtype)
+            loss = float(step_fn(create_train_state(ref, lr),
+                                 (x2.to(dev, dtype), y2.to(dev, dtype)))["loss"])
+            results.append((loss, {n: p.grad.detach().cpu() for n, p in ref.named_parameters()}))
+        (cpu_loss, cpu_g), (dev_loss, dev_g) = results
+        g_scale = max(g.abs().max().item() for g in cpu_g.values())
+        compared[str(dtype).split(".")[1]] = dict(
+            loss=[dev_loss, cpu_loss], loss_rel_err=abs(dev_loss - cpu_loss) / abs(cpu_loss),
+            grad_max_abs_err_over_max_grad=max(
+                (dev_g[n] - g).abs().max().item() for n, g in cpu_g.items()) / g_scale)
+    loss_rel = compared["float32"]["loss_rel_err"]
+    grad_err = compared["float64"]["grad_max_abs_err_over_max_grad"]
+    # float32 on two devices with other conv algorithms, ~60 layers deep
+    check(loss_rel <= 1e-4, f"f32 train loss disagrees with the CPU: {loss_rel}")
+    check(grad_err <= 1e-6, f"f64 gradients disagree with the CPU: {grad_err}")
+
+    # ---- the warm step on a full batch already on the device
+    def step():
+        trainer.train_step(trainer.state, (x, y))
+
+    step_ms = wall_ms(step, iters=10 if device == "cuda" else 1, device=device)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    med = median(step_ms)
+    n_chips = steps * epochs * batch
+    fields = dict(
+        config="parking", arch=blob["arch"], model_kwargs=blob["model_kwargs"],
+        parameters=sum(p.numel() for p in model.parameters()),
+        chips=[batch, k, k, len(bands)], train_chips=n_files * per_file, eval_chips=per_file,
+        steps=steps * epochs, evals=epochs,
+        dtype="bfloat16 autocast" if device == "cuda" and "--no-bf16" not in extra_flags
+        else "float32", pos_weight=cfg.loss_kwargs.get("pos_weight", 1.0), lr=lr,
+        torch_weights_tensors=n_backbone, stem_moved_from_warm_start=stem_moved,
+        history=trainer.history, synth_seconds=synth_s, cli_seconds=cli_s,
+        cli_chips_per_s=n_chips / cli_s,
+        step_vs_cpu=compared, f32_loss_rel_err=loss_rel,
+        f64_grad_max_abs_err_over_max_grad=grad_err,
+        step_ms=step_ms, step_ms_median=med, chips_per_s=batch / (med / 1e3),
+        mpix_per_s=batch * k * k / 1e6 / (med / 1e3), peak_mem_gib=peak)
+    return fields, ckpt, eval_file, step
+
+
+def parking_phase(torch, predict, evaluate_cli, stitch, ckpt, work, shape, eval_glob,
+                  eval_chips, extra_flags=(), seed=SEED, device="cuda"):
+    """The parking serving path: a (h, w, 3) float32 GeoTIFF (NAIP at
+    0.6 m) through ``predict scene --config parking --model deeplab --cog
+    --uint8 --predictor 2`` on the trained checkpoint (the preset's
+    geometry, hann, BN unfolded), ``hann_stitch`` launches counted; the
+    output's dtype, shape, georeferencing and absent nodata tag; one chip's
+    float32 forward on ``device`` against the CPU; the forward per chip
+    batch. Then ``--tune`` on the same scene (the table written with the
+    device's name, read back by a serve without flags), and the evaluate
+    CLI on the eval TFRecords (``eval_chips`` chips). Returns (fields,
+    launches by path, a warm scene on the device)."""
+    from satellite_computervision_tpu_torch.geo import GeoTiffScene, GeoTiffStreamWriter
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+    from satellite_computervision_tpu_torch.inference.tune import device_name, load_tune_table
+
+    cfg = predict.CONFIGS["parking"]
+    kernel, buffer, batch = cfg.serving_geometry
+    h, w, c = shape
+    rng = np.random.default_rng(seed + 100)
+    scene = rng.uniform(0.05, 0.3, shape).astype(np.float32)
+    for _ in range(max(1, h * w // 2**18)):  # "lots": bright rectangles
+        y, x = rng.integers(0, [h - 32, w - 32])
+        hh, ww = rng.integers(16, 160, 2)
+        scene[y : y + hh, x : x + ww] += 0.5
+    src = os.path.join(work, "naip.tif")
+    tf = (0.6, 0.0, 380000.0, 0.0, -0.6, 4300000.0)
+    with GeoTiffStreamWriter(src, h, w, c, np.float32, transform=tf, crs="EPSG:26918",
+                             compress="none") as wr:
+        for y in range(0, h, 1024):
+            wr.write_rows(scene[y : y + 1024])
+    rows, cols = -(-h // kernel), -(-w // kernel)
+    load = dict(cfg=cfg, arch="deeplab")
+
+    out = os.path.join(work, "lots.tif")
+    serve = ["scene", "--config", "parking", "--model", "deeplab", "--input", src, "--ckpt",
+             ckpt, "--cog", "--uint8", "--predictor", "2", "--output", out, *extra_flags]
+    stitch.hann_stitch.launches = 0
+    _, text, cli_s = run_cli(predict, serve)
+    sync(device)
+    launches = {"parking": stitch.hann_stitch.launches}
+    check(launches["parking"] == 1, f"hann_stitch launched {launches['parking']} times for "
+          "one unbanded scene")
+    res = GeoTiffScene(out)
+    pred = np.asarray(res)
+    check(res.dtype == np.uint8 and pred.shape == (h, w, 1), f"output {res.dtype} {pred.shape}")
+    check("26918" in res.meta.get("crs", "") and tuple(res.meta["transform"]) == tf,
+          f"georeferencing lost: {res.meta}")
+    check(res.nodata is None, f"a nodata tag the JAX CLI does not write: {res.nodata}")
+    check(pred.any(), "an all-zero parking map")
+
+    # ---- one chip, float32, the device (TF32 off) against the CPU
+    side = kernel + buffer
+    chip = torch.from_numpy(np.ascontiguousarray(scene[:side, :side]))[None]
+    cpu_model = predict.load_model(ckpt, torch.device("cpu"), **load)
+    f32_model = copy.deepcopy(cpu_model).to(device)
+    with torch.inference_mode():
+        cpu_logits = cpu_model(chip)["logits"]
+        dev_logits = f32_model(chip.to(device))["logits"].cpu()
+    logit_err = (dev_logits - cpu_logits).abs().max().item()
+    logit_scale = cpu_logits.abs().max().item()
+    check(logit_err <= 1e-4 * max(logit_scale, 1.0),
+          f"f32 forward disagrees with the CPU: {logit_err} (scale {logit_scale})")
+    del f32_model
+
+    # ---- warm times: one forward of a full chip batch, one scene on the device
+    served = predict.load_model(ckpt, torch.device(device), **load)
+    gen = torch.Generator().manual_seed(seed + 101)
+    chips = (torch.rand((batch, side, side, c), generator=gen) * 0.3).to(device)
+    reps = 5 if device == "cuda" else 1
+    with torch.inference_mode():
+        fwd_ms = wall_ms(lambda: served(chips), iters=reps, device=device)
+    engine = TiledInferenceEngine(lambda x: served(x)["probs"], kernel=kernel, buffer=buffer,
+                                  batch_size=batch, blend="hann", device=device)
+    scene_dev = torch.from_numpy(scene).to(device)
+
+    def run_scene():
+        engine.predict_scene(scene_dev)
+
+    scene_ms = wall_ms(run_scene, iters=reps, device=device)
+    del chips
+
+    # ---- --tune: the table is written with this device's name; a serve
+    # without geometry flags reads it back
+    _, _, tune_s = run_cli(predict, serve + ["--tune"])
+    table = os.path.join(ckpt, predict.TUNE_TABLE)
+    tuned = load_tune_table(table)
+    here = device_name(torch.device(device))
+    check(tuned and all(r.device == here for r in tuned), f"tune rows not of {here}: {tuned}")
+    best = tuned[0]
+    stitch.hann_stitch.launches = 0
+    _, tuned_text, tuned_s = run_cli(predict, serve)
+    sync(device)
+    launches["parking_tuned"] = stitch.hann_stitch.launches
+    check("(tune table" in tuned_text, "the serve after --tune did not read the table")
+    want = ("tile_mode=whole" if best.tile_mode == "whole"
+            else f"serving geometry: k{best.kernel}+b{best.buffer} ")
+    check(want in tuned_text, f"the tuned serve did not take {best.label()}")
+    check(launches["parking_tuned"] == (best.tile_mode == "chips"),
+          f"hann_stitch launched {launches['parking_tuned']} times in the tuned serve")
+
+    # ---- the evaluate CLI on the eval TFRecords
+    report, _, eval_s = run_cli(evaluate_cli, [
+        "--config", "parking", "--model", "deeplab", "--ckpt", ckpt, "--eval", eval_glob,
+        *extra_flags])
+    counts = np.asarray(report["counts"])
+    eval_pixels = eval_chips * cfg.kernel_size ** 2
+    check(counts.sum() == eval_pixels, f"confusion counts sum to {counts.sum()}, "
+          f"not the {eval_pixels} eval pixels")
+    check(np.isfinite(report["rates"]).all() and all(
+        math.isfinite(v) for v in report["overall"].values()), f"non-finite rates: {report}")
+
+    mpix = h * w / 1e6
+    fields = dict(
+        config="parking", scene=list(shape), geometry=[kernel, buffer, batch],
+        grid=[rows, cols], launches=launches, cli_seconds=cli_s, cli_mpix_per_s=mpix / cli_s,
+        output_dtype=str(res.dtype), output_shape=list(pred.shape), output_max=int(pred.max()),
+        crs=res.meta.get("crs", ""), nodata_tag=res.nodata,
+        f32_vs_cpu_max_abs_logit_err=logit_err, f32_logit_scale=logit_scale,
+        forward_ms_per_batch=fwd_ms, forward_ms_per_batch_median=median(fwd_ms),
+        scene_ms_device_input=scene_ms, scene_ms=median(scene_ms),
+        mpix_per_s_device_input=mpix / (median(scene_ms) / 1e3),
+        tune_cli_seconds=tune_s, tune_rows=[dict(r.__dict__) for r in tuned],
+        tuned_cli_seconds=tuned_s, tuned_geometry=best.label(),
+        eval_chips=eval_chips, eval_seconds=eval_s, eval_pixels=int(counts.sum()),
+        eval_counts=counts.tolist(), eval_overall=report["overall"])
+    return fields, launches, run_scene
+
+
 def main():
     import torch
 
@@ -1087,6 +1379,7 @@ def main():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
               file=sys.stderr)
         return 1
+    from satellite_computervision_tpu_torch import evaluate as evaluate_cli
     from satellite_computervision_tpu_torch import native, predict
     from satellite_computervision_tpu_torch.geo import read_geotiff
     from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
@@ -1132,12 +1425,17 @@ def main():
     change_shape = stitch_case(torch, stitch, ck, cb, c_rows, c_cols, 1, gen, timed=True)
     change_bands = [stitch_case(torch, stitch, ck, cb, r, c_cols, 1, gen, timed=False)
                     for r in (2, 3)]
+    # the parking path's grid: k512 + b256 over a 4096² scene, 64 chips of
+    # 768² into a 4608² canvas
+    pk, pb, _ = PARKING_CONFIG.serving_geometry
+    p_rows, p_cols = -(-PARKING_SCENE[0] // pk), -(-PARKING_SCENE[1] // pk)
+    parking_shape = stitch_case(torch, stitch, pk, pb, p_rows, p_cols, 1, gen, timed=True)
     emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases,
-         change=change_shape, change_bands=change_bands)
+         change=change_shape, change_bands=change_bands, parking=parking_shape)
     # the engine's route: the same products and adds in the same order, so
     # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
-    cases = [small, main_shape, change_shape] + band_cases + change_bands
+    cases = [small, main_shape, change_shape, parking_shape] + band_cases + change_bands
     check(all(c["max_abs_err"] == 0.0 for c in cases),
           "hann_stitch(apply_window=True) is not bit-equal to its plain version")
     check(all(c["weighted_max_abs_err"] <= tol for c in cases),
@@ -1264,6 +1562,18 @@ def main():
     emit("change", **change)
     serving_launches.update(change_launches)
 
+    # ---- parking lots: DeepLab v3+ (ResNet-50) trained on TFRecords from a
+    # warm-start backbone, then served, tuned and evaluated
+    parking_train, parking_ckpt, parking_eval, parking_step = parking_train_phase(
+        torch, work, PARKING_FILES, PARKING_CHIPS, PARKING_CONFIG.batch_size, PARKING_STEPS,
+        PARKING_EPOCHS)
+    emit("parking_train", **parking_train)
+    parking, parking_launches, parking_scene = parking_phase(
+        torch, predict, evaluate_cli, stitch, parking_ckpt, work, PARKING_SCENE, parking_eval,
+        PARKING_CHIPS)
+    emit("parking", **parking)
+    serving_launches.update(parking_launches)
+
     # ---- where a warm scene's and a warm train step's device time goes
     emit("profile", what="scene", **device_profile(torch, run_dev))
     emit("profile", what="train_step", calls=3, **device_profile(torch, train_step, calls=3))
@@ -1272,6 +1582,9 @@ def main():
     emit("profile", what="change_train_step", calls=3,
          **device_profile(torch, change_step, calls=3))
     emit("profile", what="change_scene", **device_profile(torch, change_scene))
+    emit("profile", what="parking_scene", **device_profile(torch, parking_scene))
+    emit("profile", what="parking_train_step", calls=3,
+         **device_profile(torch, parking_step, calls=3))
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -1285,6 +1598,9 @@ def main():
          "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
          "library_ms": main_shape["library_ms"],
          "change_shape": {k: change_shape[k] for k in (
+             "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")},
+         "parking_shape": {k: parking_shape[k] for k in (
              "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")}},
         {"name": "fused_preprocess", "route": "cuda",

@@ -1,5 +1,5 @@
-"""The U-Net and Siamese U-Net families (PyTorch), the U-Net's BN folding,
-the flax weight bridge, losses and metrics."""
+"""The U-Net, Siamese U-Net and DeepLab v3+ families (PyTorch), the
+U-Net's BN folding, the flax weight bridge, losses and metrics."""
 
 from satellite_computervision_tpu_torch.models.blocks import (
     ASPP,
@@ -10,6 +10,13 @@ from satellite_computervision_tpu_torch.models.blocks import (
 )
 from satellite_computervision_tpu_torch.models import losses, metrics
 from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
+from satellite_computervision_tpu_torch.models.deeplab import (
+    BottleneckBlock,
+    DeepLabV3Plus,
+    ResNetBackbone,
+    export_torch_resnet_weights,
+    load_torch_resnet_weights,
+)
 from satellite_computervision_tpu_torch.models.fold import fold_unet
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet, flax_init_, unet_parking, unet_solar
@@ -22,6 +29,11 @@ __all__ = [
     "ASPP",
     "UNet",
     "SiameseUNet",
+    "BottleneckBlock",
+    "ResNetBackbone",
+    "DeepLabV3Plus",
+    "load_torch_resnet_weights",
+    "export_torch_resnet_weights",
     "unet_solar",
     "unet_parking",
     "fold_unet",

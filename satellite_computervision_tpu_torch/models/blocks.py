@@ -41,13 +41,20 @@ class BatchNorm(nn.BatchNorm2d):
     the unbiased variance ``n/(n-1)`` times the biased one ``v``; the
     flax update is ``(1-m)*rv + m*v``. The difference is ``m*u/n``, which
     is recovered from the updated buffer and subtracted: a per-channel
-    correction, no second pass over the activations."""
+    correction, no second pass over the activations.
+
+    One value per channel (DeepLab's image-pooling branch at batch 1) is
+    normalized as flax does it: to 0, so the output is the bias, and the
+    running variance is updated with a batch variance of 0; torch's kernel
+    refuses such a batch."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self.num_batches_tracked.add_(1)
         n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._one_value(x)
         # the kernel updates this copy in place to (1-m)*running_var + m*u;
         # autograd keeps it, so the buffer itself is written afterwards
         updated = self.running_var.clone()
@@ -57,6 +64,20 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.copy_(
                 updated - (updated - (1.0 - self.momentum) * self.running_var) / n)
         return out
+
+    def _one_value(self, x):
+        """Train-mode BN of a batch holding one value per channel, in flax's
+        formulation: ``x - mean`` is exactly 0, so are its gradients."""
+        dims = (0, 2, 3)
+        centred = x - x.mean(dim=dims, keepdim=True)
+        var = centred.square().mean(dim=dims)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = centred * scale[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * x.mean(dim=dims).float())
+            self.running_var.mul_(1.0 - m).add_(m * var.float())
+        return out.to(x.dtype)
 
 
 def _bn(ch: int, bn_momentum: float = BN_MOMENTUM) -> BatchNorm:

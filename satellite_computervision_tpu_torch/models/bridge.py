@@ -1,5 +1,6 @@
 """Weight bridge: flax model variables (nested dicts of numpy arrays) ->
-the port's ``state_dict``, for the ``UNet`` and the ``SiameseUNet``.
+the port's ``state_dict``, for the ``UNet``, the ``SiameseUNet`` and
+``DeepLabV3Plus``.
 
 The port's module names follow the flax tree, so a torch key
 ``DecoderBlock_0.Conv_1.weight`` reads from
@@ -8,7 +9,8 @@ architecture (a U-Net tree for a Siamese model, or the reverse) has
 leaves without a place and keys without a source, and raises. What
 changes on the way:
 
-- conv kernels go from HWIO to OIHW;
+- conv kernels go from HWIO to OIHW; a conv without a bias (DeepLab's
+  backbone and decoder, ``use_bias=False``) reads none;
 - transposed-conv kernels are flipped in space and go from HWIO to
   (in, out, kh, kw): flax's ``ConvTranspose`` (no kernel transpose)
   convolves the dilated input with the kernel as is, torch's
@@ -74,7 +76,8 @@ def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping],
             k = P(path + ("kernel",))
             out[pre + "weight"] = torch.from_numpy(
                 np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-            out[pre + "bias"] = torch.from_numpy(P(path + ("bias",)))
+            if mod.bias is not None:  # DeepLab's backbone convs have none
+                out[pre + "bias"] = torch.from_numpy(P(path + ("bias",)))
         elif isinstance(mod, nn.BatchNorm2d):
             out[pre + "weight"] = torch.from_numpy(P(path + ("scale",)))
             out[pre + "bias"] = torch.from_numpy(P(path + ("bias",)))

@@ -15,15 +15,22 @@ Modes:
 
 ``--model`` picks the family (default: the config's, ``siamese`` for
 ``--config change``); ``change`` mode serves the siamese family, the other
-modes the unet family. The checkpoint is ``<ckpt>/best/model.pt`` (the
+modes the unet family or ``deeplab`` (DeepLab v3+, the parking-lot model;
+BN is not folded for it). The checkpoint is ``<ckpt>/best/model.pt`` (the
 port's format, which records the architecture) or
 ``<ckpt>/best/state.msgpack`` (the JAX package's, built as the config's
 model of that family). On CUDA the model serves in bfloat16; on the CPU
-(``--device cpu``) in float32. A scene's output (scene, sweep) carries its
-input's nodata value as its GDAL_NODATA tag; ``change`` writes its output
-as the JAX CLI does, with no tag. Not ported yet: ``--model deeplab``,
-``--tune`` and tune tables (a ``<ckpt>/tune.json`` is ignored, with a
-note).
+(``--device cpu``) in float32. Outputs carry the transform, CRS and
+compression, as the JAX CLI writes them, and no nodata tag: ``--nodata``
+(or the input's tag) only culls chips.
+
+The serving geometry is, in this order: the ``--kernel``/``--buffer``/
+``--tile-mode`` flags; else the best row of the tune table
+``<ckpt>/tune_torch.json`` when every row was measured on this device;
+else the preset's. ``scene --tune`` times the candidate geometries on the
+device (``inference.tune``), serves the fastest and writes that table.
+The JAX package's ``<ckpt>/tune.json`` was measured on another device: it
+is reported and ignored.
 
 Examples::
 
@@ -33,6 +40,9 @@ Examples::
   python -m satellite_computervision_tpu_torch.predict scene \\
       --input swath.tif --ckpt runs/solar --fold-bn --max-rows 2688 \\
       --nodata 0 --cog --uint8 --predictor 2 --output swath_pred.tif
+  python -m satellite_computervision_tpu_torch.predict scene --config parking \\
+      --model deeplab --input naip.tif --ckpt runs/parking --tune \\
+      --cog --uint8 --predictor 2 --output lots.tif
   python -m satellite_computervision_tpu_torch.predict sweep \\
       --input scenes/ --ckpt runs/solar --fold-bn --outdir preds/ --prefetch 2
   python -m satellite_computervision_tpu_torch.predict patches \\
@@ -61,10 +71,17 @@ from satellite_computervision_tpu_torch.inference.batch import (
     list_export_files,
     run_batch_prediction,
 )
+from satellite_computervision_tpu_torch.inference.tune import (
+    device_name,
+    load_tune_table,
+    save_tune_table,
+    tune_engine_geometry,
+)
 from satellite_computervision_tpu_torch.models import UNet, fold_unet
 from satellite_computervision_tpu_torch.train.checkpoint import (
     Model,
     arch_of,
+    build_empty,
     load_checkpoint,
     load_flax_weights,
     read_flax_checkpoint,
@@ -73,27 +90,55 @@ from satellite_computervision_tpu_torch.train.config import CONFIGS, SOLAR_CONFI
 from satellite_computervision_tpu_torch.train.zoo import get_family
 
 
-def resolve_serving_geometry(cfg, args, ckpt_dir=None):
-    """The serving geometry: explicit ``--kernel`` / ``--buffer`` /
-    ``--batch-size`` flags over the preset's ``serving_geometry``. Returns
-    (kernel, buffer, batch, tile_mode, source-string).
+# the port's tune table beside the checkpoint; the JAX package's is
+# JAX_TUNE_TABLE (its reader refuses rows that carry a device)
+TUNE_TABLE = "tune_torch.json"
+JAX_TUNE_TABLE = "tune.json"
 
-    The JAX CLI also consults a tune table (``<ckpt>/tune.json``); its rows
-    were measured on another device and must not pick this card's
-    geometry, so here a table is reported and ignored."""
+
+def resolve_serving_geometry(cfg, args, ckpt_dir=None, device="cpu"):
+    """The serving geometry, in precedence order: explicit ``--kernel`` /
+    ``--buffer`` / ``--tile-mode`` flags (any of them skips the table);
+    the best row of ``<ckpt>/tune_torch.json`` when every row names
+    ``device``; the preset's ``serving_geometry``. ``--batch-size``
+    overrides the batch either way. Returns (kernel, buffer, batch,
+    tile_mode, source-string).
+
+    A table measured on another device (or a JAX ``tune.json``, whose rows
+    name none) must not pick this device's geometry: it is reported and
+    ignored."""
     kernel, buffer, batch = cfg.serving_geometry
-    source = "preset"
-    table = os.path.join(ckpt_dir, "tune.json") if ckpt_dir else None
-    if table and os.path.exists(table):
-        print(f"note: ignoring tune table {table} (tune tables are not ported; "
-              "serving the preset/flag geometry)")
+    tile_mode, source = args.tile_mode, "preset"
+    explicit = args.kernel is not None or args.buffer is not None or args.tile_mode != "chips"
+    if ckpt_dir:
+        jax_table = os.path.join(ckpt_dir, JAX_TUNE_TABLE)
+        if os.path.exists(jax_table):
+            print(f"note: ignoring tune table {jax_table} (the JAX package's, measured "
+                  "on another device)")
+        table = os.path.join(ckpt_dir, TUNE_TABLE)
+        if os.path.exists(table):
+            rows = load_tune_table(table)
+            here = device_name(device)
+            if explicit:
+                print(f"note: ignoring tune table {table} (explicit geometry flags)")
+            elif rows and all(r.device == here for r in rows):
+                best = rows[0]
+                source = f"tune table ({best.ms:.1f} ms/scene)"
+                if best.tile_mode == "whole":
+                    tile_mode = "whole"
+                else:
+                    kernel, buffer, tile_mode = best.kernel, best.buffer, "chips"
+            else:
+                measured = sorted({str(r.device) for r in rows})
+                print(f"note: ignoring tune table {table} (measured on {measured}, "
+                      f"not {here!r}); serving the preset/flag geometry")
     if args.kernel is not None:
         kernel, source = args.kernel, "flags"
     if args.buffer is not None:
         buffer, source = args.buffer, "flags"
     if args.batch_size is not None:
         batch = args.batch_size
-    return kernel, buffer, batch, args.tile_mode, source
+    return kernel, buffer, batch, tile_mode, source
 
 
 def load_scene(path, max_rows=None):
@@ -131,14 +176,14 @@ def load_model(ckpt_dir: str, device, s2d=None, fold_bn: bool = False,
             not os.path.exists(os.path.join(best, "model.pt")):
         tree, meta = read_flax_checkpoint(best)
         if arch != "unet":
-            model = load_flax_weights(get_family(arch).build(cfg), tree)
+            model = load_flax_weights(build_empty(get_family(arch).build, cfg), tree)
         else:
             stem = bool(cfg.space_to_depth) if s2d is None else s2d
 
             def build(space_to_depth):
-                return UNet(len(cfg.bands), n_classes=cfg.num_classes,
-                            head="sigmoid" if cfg.num_classes == 1 else "softmax",
-                            threshold=cfg.threshold, space_to_depth=space_to_depth)
+                return build_empty(UNet, len(cfg.bands), n_classes=cfg.num_classes,
+                                   head="sigmoid" if cfg.num_classes == 1 else "softmax",
+                                   threshold=cfg.threshold, space_to_depth=space_to_depth)
 
             try:
                 model = load_flax_weights(build(stem), tree)
@@ -182,7 +227,8 @@ def _change(args, cfg, model, device, comp_kw):
     def predict_pair(chips):
         return model(chips[..., :nb], chips[..., nb:])["probs"]
 
-    kernel, buffer, batch, tile_mode, source = resolve_serving_geometry(cfg, args, args.ckpt)
+    kernel, buffer, batch, tile_mode, source = resolve_serving_geometry(cfg, args, args.ckpt,
+                                                                        device)
     print(f"serving geometry: k{kernel}+b{buffer} batch {batch} tile_mode={tile_mode} "
           f"({source}) on {device}")
     nodata = args.nodata if args.nodata is not None else meta.get("nodata")
@@ -259,7 +305,7 @@ def _sweep(args, cfg, engine_kw, comp_kw):
 
     def geo_kwargs(meta):
         return dict(transform=tuple(args.transform) if args.transform else meta.get("transform"),
-                    crs=args.crs or meta.get("crs", ""), nodata=nodata)
+                    crs=args.crs or meta.get("crs", ""))
 
     t0 = time.monotonic()
     mpix = 0.0
@@ -275,9 +321,7 @@ def _sweep(args, cfg, engine_kw, comp_kw):
             if scene.shape[0] <= args.max_rows:
                 write(out, engine.predict_scene(scene).cpu().numpy(), **kw, **comp_kw)
             else:
-                engine.predict_scene_to_geotiff(scene, out, transform=kw["transform"],
-                                                crs=kw["crs"], nodata_tag=nodata,
-                                                cog=args.cog, **comp_kw)
+                engine.predict_scene_to_geotiff(scene, out, cog=args.cog, **kw, **comp_kw)
             h, w = scene.shape[:2]
             mpix += h * w / 1e6
             written.append(out)
@@ -333,6 +377,11 @@ def main(argv=None):
                     help="engine chip context buffer (default: the config's)")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="chips per forward (default: the config's serving batch)")
+    ap.add_argument("--tune", action="store_true",
+                    help="scene mode: time the candidate chip geometries on the device, "
+                    "serve the fastest and keep the table in <ckpt>/tune_torch.json "
+                    "(later serves use it); overrides --kernel/--buffer/--tile-mode; "
+                    "with --max-rows a tall scene tunes on one band")
     ap.add_argument("--blend", choices=["overwrite", "hann"], default="hann")
     ap.add_argument("--tile-mode", choices=["chips", "whole"], default="chips",
                     help="whole = one fully convolutional forward over the padded "
@@ -386,13 +435,12 @@ def main(argv=None):
                  "output; use --predictor 2 with --uint8")
     cfg = CONFIGS[args.config]
     arch = args.model or ("siamese" if cfg.family == "siamese" else "unet")
-    if arch == "deeplab":
-        sys.exit("--model deeplab is not ported yet")
     if args.fold_bn and arch != "unet":
         sys.exit("--fold-bn currently supports the unet family only")
     if (args.mode == "change") != (arch == "siamese"):
         sys.exit(f"{args.mode} mode serves the "
-                 f"{'siamese' if args.mode == 'change' else 'unet'} family, not {arch}")
+                 f"{'siamese' if args.mode == 'change' else 'unet or deeplab'} family, "
+                 f"not {arch}")
     if args.mode == "change":
         if not (args.input_before and args.input_after):
             sys.exit("change mode needs --input-before and --input-after")
@@ -423,15 +471,25 @@ def main(argv=None):
                   f"image --asset_id=<id> {' '.join(written)} {mixer_path}")
         return written
 
-    kernel, buffer, batch, tile_mode, source = resolve_serving_geometry(cfg, args, args.ckpt)
+    # S2D halves the grid before the trunk: whole-scene padding covers one
+    # more factor of 2
+    whole_multiple = 64 if getattr(model, "space_to_depth", False) else 32
+    output_transform = _uint8 if args.uint8 else None
+    if args.mode == "scene" and args.tune:
+        scene, meta = load_scene(args.input, args.max_rows)
+        nodata = args.nodata if args.nodata is not None else meta.get("nodata")
+        engine = _tune(args, cfg, predict, scene, whole_multiple, output_transform, device)
+        # tuning times full grids; serving still culls
+        engine.nodata = nodata
+        return _serve_scene(args, engine, scene, meta, nodata, comp_kw)
+
+    kernel, buffer, batch, tile_mode, source = resolve_serving_geometry(cfg, args, args.ckpt,
+                                                                        device)
     engine_kw = dict(
         predict_fn=predict, kernel=kernel, buffer=buffer, batch_size=batch,
         out_channels=cfg.num_classes, blend=args.blend, tile_mode=tile_mode,
-        max_rows=args.max_rows, device=device,
-        # S2D halves the grid before the trunk: whole-scene padding covers
-        # one more factor of 2
-        whole_multiple=64 if model.space_to_depth else 32,
-        output_transform=_uint8 if args.uint8 else None,
+        max_rows=args.max_rows, device=device, whole_multiple=whole_multiple,
+        output_transform=output_transform,
     )
     print(f"serving geometry: k{kernel}+b{buffer} batch {batch} tile_mode={tile_mode} "
           f"({source}) on {device}")
@@ -441,6 +499,32 @@ def main(argv=None):
     scene, meta = load_scene(args.input, args.max_rows)
     nodata = args.nodata if args.nodata is not None else meta.get("nodata")
     engine = TiledInferenceEngine(nodata=nodata, **engine_kw)
+    return _serve_scene(args, engine, scene, meta, nodata, comp_kw)
+
+
+def _tune(args, cfg, predict, scene, whole_multiple, output_transform, device):
+    """``scene --tune``: time the candidate geometries on ``device`` (one
+    band of a scene taller than ``--max-rows``), write the table to
+    ``<ckpt>/tune_torch.json`` and return the fastest engine."""
+    print(f"tuning chip geometry on {device_name(device)}:")
+    engine, rows = tune_engine_geometry(
+        predict, scene.shape, np.float32, out_channels=cfg.num_classes, blend=args.blend,
+        batch_size=args.batch_size or cfg.serving_geometry[2],
+        output_transform=output_transform, chip_multiple=whole_multiple, scene=scene,
+        max_rows=args.max_rows, verbose=print, device=device)
+    table = os.path.join(args.ckpt, TUNE_TABLE)
+    save_tune_table(table, rows)
+    print(f"serving with {rows[0].label()} ({rows[0].ms:.1f} ms/scene); table cached at "
+          f"{table} (later serves on this device use it)")
+    print(f"serving geometry: k{engine.kernel}+b{engine.buffer} batch {engine.batch_size} "
+          f"tile_mode={engine.tile_mode} (tuned) on {device}")
+    return engine
+
+
+def _serve_scene(args, engine, scene, meta, nodata, comp_kw):
+    """Scene mode's serve and write: streamed banded when the scene is
+    taller than the engine's ``max_rows``, else one pass (chips culled
+    with ``nodata``) and one write."""
     out = args.output or "prediction.tif"
     out_tf = tuple(args.transform) if args.transform else meta.get("transform")
     out_crs = args.crs or meta.get("crs", "")
@@ -450,7 +534,7 @@ def main(argv=None):
         # disk-to-disk streaming: output rows reach the GeoTIFF as each band
         # completes (--cog streams tiles + overviews at the same bound)
         engine.predict_scene_to_geotiff(scene, out, transform=out_tf, crs=out_crs,
-                                        nodata_tag=nodata, cog=args.cog, **comp_kw)
+                                        cog=args.cog, **comp_kw)
         how = f"streamed banded{', cog' if args.cog else ''}"
     else:
         valid = None
@@ -460,7 +544,7 @@ def main(argv=None):
                   f"pixels; culling the rest")
         pred = engine.predict_scene(scene, valid_chips=valid).cpu().numpy()
         (write_cog if args.cog else write_geotiff)(
-            out, pred, transform=out_tf, crs=out_crs, nodata=nodata, **comp_kw)
+            out, pred, transform=out_tf, crs=out_crs, **comp_kw)
         how = "cog" if args.cog else "geotiff"
     dt = time.perf_counter() - t0
     print(f"wrote {out} ({how}) shape={(h, w, engine.out_channels)} "

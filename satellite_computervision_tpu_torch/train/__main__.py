@@ -1,11 +1,15 @@
-"""Config-driven training CLI: TFRecord workloads (the unet family) and
-npy-chip change detection (the siamese family).
+"""Config-driven training CLI: TFRecord workloads (the unet and deeplab
+families) and npy-chip change detection (the siamese family).
 
 Port of ``scripts/train.py``::
 
   python -m satellite_computervision_tpu_torch.train --config solar \\
       --train 'data/train-*.tfrecord.gz' --eval 'data/eval-*.tfrecord.gz' \\
       --ckpt runs/solar_torch
+  python -m satellite_computervision_tpu_torch.train --config parking \\
+      --model deeplab --train 'naip/train-*.tfrecord.gz' \\
+      --eval 'naip/eval-*.tfrecord.gz' --torch-weights resnet50.pth \\
+      --ckpt runs/parking
   python -m satellite_computervision_tpu_torch.train --config change \\
       --before 'chips/before/*.npy' --after 'chips/after/*.npy' \\
       --labels 'chips/label/*.npy' --ckpt runs/change
@@ -13,23 +17,28 @@ Port of ``scripts/train.py``::
 EE-schema GZIP TFRecords are read and batched (``data.pipeline``), moved
 to the device, preprocessed there (``make_preprocess_fn`` with the
 config's axes: per-channel ``axes=(0, 1)`` runs the CUDA
-``fused_preprocess``, the solar preset's per-pixel ``(2,)`` the plain
-ops), and the U-Net trains on the config's loss with Adam, evaluating each
-epoch and keeping the best-metric checkpoint in ``<ckpt>/best/model.pt``,
-which the ``predict`` CLI serves. The siamese family reads before/after/
-label ``.npy`` chips through ``data.chip_generators.SiameseChipDataset``
-(centre-trimmed to the config's training tile, colour and flip/rot90
-augmented on the host), trains on train metrics (no eval stream), one
-epoch being the dataset's length unless ``--steps-per-epoch`` says
-otherwise, and keeps a ``model.pt`` with ``arch`` ``siamese``, which
-``predict change`` serves. ``--bn-momentum`` and ``--s2d`` apply to the
-unet family only (the Siamese model keeps the Keras momentum 0.99). On
-CUDA the forward runs in bfloat16 under autocast (``--no-bf16`` for
-float32); on the CPU (``--device cpu``) in float32.
+``fused_preprocess``, the solar and parking presets' per-pixel ``(2,)`` the
+plain ops), and the model trains on the config's loss with Adam,
+evaluating each epoch and keeping the best-metric checkpoint in
+``<ckpt>/best/model.pt``, which the ``predict`` CLI serves. ``--model
+deeplab`` trains DeepLab v3+ on a ResNet-50; ``--torch-weights`` warm-starts
+its backbone from a local torchvision-layout ResNet ``state_dict``
+(``models.deeplab.load_torch_resnet_weights``: convs and BatchNorm
+statistics) and exits for any other family. The siamese family reads
+before/after/label ``.npy`` chips through
+``data.chip_generators.SiameseChipDataset`` (centre-trimmed to the
+config's training tile, colour and flip/rot90 augmented on the host),
+trains on train metrics (no eval stream), one epoch being the dataset's
+length unless ``--steps-per-epoch`` says otherwise, and keeps a
+``model.pt`` with ``arch`` ``siamese``, which ``predict change`` serves.
+``--bn-momentum`` and ``--s2d`` apply to the unet family only (the Siamese
+and DeepLab models keep their own momenta). On CUDA the forward runs in
+bfloat16 under autocast (``--no-bf16`` for float32); on the CPU
+(``--device cpu``) in float32.
 
 Not ported yet: the other npy-chip families (``convlstm``,
-``lstm_autoencoder``, ``hybrid``, ``hierarchical``), ``deeplab`` and
-``acnn``, ``--orbax``, ``--torch-weights`` and ``--remat``.
+``lstm_autoencoder``, ``hybrid``, ``hierarchical``), ``acnn``, ``--orbax``
+and ``--remat``.
 """
 
 from __future__ import annotations
@@ -47,8 +56,9 @@ from satellite_computervision_tpu_torch.data.pipeline import (
     get_training_dataset,
     make_preprocess_fn,
 )
+from satellite_computervision_tpu_torch.models.deeplab import load_torch_resnet_weights
 from satellite_computervision_tpu_torch.models.unet import flax_init_
-from satellite_computervision_tpu_torch.train.checkpoint import CheckpointManager
+from satellite_computervision_tpu_torch.train.checkpoint import CheckpointManager, build_empty
 from satellite_computervision_tpu_torch.train.config import CONFIGS
 from satellite_computervision_tpu_torch.train.trainer import Trainer, create_train_state
 from satellite_computervision_tpu_torch.train.zoo import FAMILIES
@@ -71,7 +81,7 @@ def main(argv=None):
     ap.add_argument("--config", choices=sorted(CONFIGS), default="solar")
     ap.add_argument("--model", choices=TFRECORD_FAMILIES + NPY_FAMILIES, default=None,
                     help="model family (default: the config's)")
-    ap.add_argument("--train", help="glob of training TFRecords (unet)")
+    ap.add_argument("--train", help="glob of training TFRecords (unet, deeplab)")
     ap.add_argument("--eval", help="glob of eval TFRecords")
     ap.add_argument("--before", help="siamese: glob of before-chip npys")
     ap.add_argument("--after", help="siamese: glob of after-chip npys")
@@ -91,6 +101,9 @@ def main(argv=None):
     ap.add_argument("--bn-momentum", type=float, default=0.9,
                     help="unet: BatchNorm running-stat momentum (Keras convention); "
                     "0.99 needs thousands of steps before eval stabilizes")
+    ap.add_argument("--torch-weights",
+                    help="deeplab: warm-start the ResNet backbone from a local torchvision "
+                    "state_dict .pth (convs and BatchNorm running statistics)")
     ap.add_argument("--resume", action="store_true",
                     help="restore <ckpt>/best and seed the best metric from an eval")
     ap.add_argument("--seed", type=int, default=0)
@@ -102,8 +115,10 @@ def main(argv=None):
     if args.model not in FAMILIES:
         sys.exit(f"--model {args.model} is not ported yet")
     family = FAMILIES[args.model]
-    if args.model == "unet" and not args.train:
-        sys.exit("--train tfrecord glob is required for unet")
+    if args.torch_weights and args.model != "deeplab":
+        sys.exit("--torch-weights applies to --model deeplab (the torchvision ResNet backbone)")
+    if args.model in TFRECORD_FAMILIES and not args.train:
+        sys.exit(f"--train tfrecord glob is required for {args.model}")
     if args.model == "siamese" and not (args.before and args.after and args.labels):
         sys.exit("siamese needs --before/--after/--labels npy globs")
     device = resolve_device(args.device)
@@ -118,8 +133,16 @@ def main(argv=None):
         kw["bn_momentum"] = args.bn_momentum
         if args.s2d is not None:
             kw["space_to_depth"] = args.s2d
-    model = family.build(cfg, **kw)
+    # built on the meta device and allocated once: flax_init_ draws every
+    # weight and statistic from the seed (a ResNet-50 DeepLab's 40 M draws
+    # take seconds on the host; drawing them twice, once in the
+    # constructor, doubled that)
+    model = build_empty(family.build, cfg, **kw).to_empty(device="cpu")
     flax_init_(model, torch.Generator().manual_seed(args.seed))
+    if args.torch_weights:
+        loaded = load_torch_resnet_weights(model, args.torch_weights)
+        print(f"warm-started ResNet backbone from {args.torch_weights} "
+              f"({len(loaded)} tensors)")
     model = model.to(device, memory_format=torch.channels_last)
     loss_fn, pred_key = family.loss(cfg)
     trainer = Trainer(

@@ -5,8 +5,8 @@ A checkpoint is one file ``<dir>/<which>/model.pt`` (``which`` is
 ``torch.save`` of ``{"arch", "model_kwargs", "state_dict", "meta"}`` plus,
 when a training state is saved, ``"optimizer"`` (the optimizer's
 ``state_dict``) and ``"step"``. ``arch`` names the model class
-(``"unet"`` or ``"siamese"``, :data:`ARCHS`); a file without it (written
-before the Siamese model was ported) holds a ``UNet``. ``model_kwargs``
+(``"unet"``, ``"siamese"`` or ``"deeplab"``, :data:`ARCHS`); a file without
+it (written before the Siamese model was ported) holds a ``UNet``. ``model_kwargs``
 are the constructor arguments (the model's ``kwargs``); ``meta`` is a
 JSON-able dict ``{"step", "metrics"}``. ``predict.load_model`` reads
 ``<dir>/best``.
@@ -29,12 +29,21 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
+from satellite_computervision_tpu_torch.models.deeplab import DeepLabV3Plus
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet
 from satellite_computervision_tpu_torch.train import flax_msgpack
 
-Model = Union[UNet, SiameseUNet]
-ARCHS = {"unet": UNet, "siamese": SiameseUNet}
+Model = Union[UNet, SiameseUNet, DeepLabV3Plus]
+ARCHS = {"unet": UNet, "siamese": SiameseUNet, "deeplab": DeepLabV3Plus}
+
+
+def build_empty(build, *args, **kwargs) -> Model:
+    """``build(*args, **kwargs)`` on the meta device: no initial weights are
+    drawn (seconds on the CPU for a ResNet-50 DeepLab); the weights come
+    next from ``load_state_dict(..., assign=True)``."""
+    with torch.device("meta"):
+        return build(*args, **kwargs)
 
 
 def arch_of(model: Model) -> str:
@@ -80,8 +89,8 @@ def load_checkpoint(path: str, which: str = "best", **overrides) -> Tuple[Model,
     ``(model, meta)``. ``overrides`` replace saved constructor arguments;
     a mismatching weight layout raises."""
     blob = _read(path, which)
-    model = ARCHS[blob.get("arch", "unet")](**{**blob["model_kwargs"], **overrides})
-    model.load_state_dict(blob["state_dict"])
+    model = build_empty(ARCHS[blob.get("arch", "unet")], **{**blob["model_kwargs"], **overrides})
+    model.load_state_dict(blob["state_dict"], assign=True)
     return model.eval(), blob["meta"]
 
 
@@ -103,9 +112,11 @@ def read_flax_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict]:
 
 def load_flax_weights(model: Model, tree: Dict[str, Any]) -> Model:
     """Load a flax state tree's ``params``/``batch_stats`` into ``model``
-    (eval mode). A tree of another architecture raises ``KeyError`` (a
-    missing or unused leaf) or ``RuntimeError`` (a shape mismatch)."""
-    model.load_state_dict(flax_to_torch(tree["params"], tree.get("batch_stats"), model))
+    (eval mode; ``model`` may be a :func:`build_empty` one). A tree of
+    another architecture raises ``KeyError`` (a missing or unused leaf) or
+    ``RuntimeError`` (a shape mismatch)."""
+    model.load_state_dict(flax_to_torch(tree["params"], tree.get("batch_stats"), model),
+                          assign=True)
     return model.eval()
 
 

@@ -2,9 +2,10 @@
 loss, so the training CLI builds through one place.
 
 Port of ``satellite_computervision_tpu/train/zoo.py``: the ``unet``
-family (the ``solar`` and ``parking`` configs) and the ``siamese`` family
-(the ``change`` config; two inputs, before and after). The ConvLSTM,
-LSTM autoencoder, hybrid, hierarchical, ACNN and DeepLab families, and the
+family (the ``solar`` and ``parking`` configs), the ``deeplab`` family
+(DeepLab v3+ on a ResNet-50, the parking-lot model) and the ``siamese``
+family (the ``change`` config; two inputs, before and after). The
+ConvLSTM, LSTM autoencoder, hybrid, hierarchical and ACNN families, and the
 weighted-CCE loss that hybrid and ACNN train with, are not ported yet.
 """
 
@@ -47,6 +48,16 @@ def _build_unet(cfg=None, **kw):
     return UNet(in_channels, n_classes=n, **kw)
 
 
+def _build_deeplab(cfg=None, **kw):
+    from satellite_computervision_tpu_torch.models import DeepLabV3Plus
+
+    n = cfg.num_classes if cfg else 1
+    kw.setdefault("head", "sigmoid" if n == 1 else "softmax")
+    kw.setdefault("threshold", cfg.threshold if cfg else 0.5)
+    in_channels = kw.pop("in_channels", len(cfg.bands) if cfg else 4)
+    return DeepLabV3Plus(in_channels, n_classes=n, **kw)
+
+
 def _build_siamese(cfg=None, **kw):
     from satellite_computervision_tpu_torch.models import SiameseUNet
 
@@ -55,8 +66,8 @@ def _build_siamese(cfg=None, **kw):
     return SiameseUNet(in_channels, **kw)
 
 
-def _img(cfg):
-    k = cfg.kernel_size if cfg else 32
+def _img(cfg, k=None):
+    k = k or (cfg.kernel_size if cfg else 32)
     return np.zeros((1, k, k, len(cfg.bands) if cfg else 4), np.float32)
 
 
@@ -65,6 +76,12 @@ FAMILIES = {
         "unet", _build_unet,
         lambda cfg: (_img(cfg),),
         _bce,  # every unet preset, multi-class too, as the JAX zoo trains it
+    ),
+    "deeplab": Family(
+        "deeplab", _build_deeplab,
+        # output stride 16 and the C2 decoder need a side of at least 64
+        lambda cfg: (_img(cfg, k=max(64, cfg.kernel_size if cfg else 64)),),
+        _bce,
     ),
     "siamese": Family(
         "siamese", _build_siamese,

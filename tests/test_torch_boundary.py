@@ -102,5 +102,6 @@ def test_batch_prediction_defaults_to_cuda(no_cuda, tmp_path):
 def test_new_modules_are_covered():
     for name in ("inference.staging", "inference.batch", "inference.mixer",
                  "inference.writers", "train.flax_msgpack", "models.siamese",
-                 "data.chip_generators"):
+                 "data.chip_generators", "models.deeplab", "inference.tune",
+                 "train.evaluate", "evaluate"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES

@@ -1,7 +1,8 @@
-"""chip_smoke.py's serving phases (swath, sweep, whole, patches) and its
-change-detection phases (change_train, change) run end to end on the CPU
-at a tiny size with a narrow U-Net / Siamese U-Net, so the smoke run's
-control flow and checks are exercised before it reaches a card. On the
+"""chip_smoke.py's serving phases (swath, sweep, whole, patches), its
+change-detection phases (change_train, change) and its parking phases
+(parking_train, parking) run end to end on the CPU at a tiny size with a
+narrow U-Net / Siamese U-Net / DeepLab, so the smoke run's control flow and
+checks are exercised before it reaches a card. On the
 CPU ``hann_stitch`` runs its plain version, whose calls are counted here
 as the kernel's launches would be."""
 
@@ -13,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from satellite_computervision_tpu_torch import predict
+from satellite_computervision_tpu_torch import evaluate, predict
 from satellite_computervision_tpu_torch.inference import tiles
 from satellite_computervision_tpu_torch.kernels import stitch
 from satellite_computervision_tpu_torch.models import UNet
 from satellite_computervision_tpu_torch.train import zoo
 from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
 from satellite_computervision_tpu_torch.train.config import CONFIGS
+from test_torch_deeplab import two_torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLAGS = ["--device", "cpu", "--kernel", "16", "--buffer", "8", "--batch-size", "4"]
@@ -94,4 +96,39 @@ def test_change_phases_on_cpu(smoke, monkeypatch):
     assert launches == fields["expected_launches"] == {"change": 1, "change_banded": 7}
     assert fields["zero_cols"] == 12 and fields["output_shape"] == [100, 60, 1]
     assert all(e == 0.0 for e in fields["max_abs_err_banded_culled_vs_unbanded_on_valid"].values())
+    run_scene()
+
+
+def test_parking_phases_on_cpu(smoke, monkeypatch):
+    """parking_train: the train CLI on 2 x 4 TFRecord chips of 64² (plus 4
+    eval chips) warm-started from an exported backbone, 2 steps of 2;
+    parking: a 96² x 3 GeoTIFF served at the preset's k64 + b32 (2 x 2
+    chips), tuned (the small-scene grid and whole mode), evaluated."""
+    cs, _, work = smoke
+    monkeypatch.setitem(CONFIGS, "parking", dataclasses.replace(
+        CONFIGS["parking"], kernel_size=64, kernel_buffer=32, batch_size=2))
+    fam = zoo.FAMILIES["deeplab"]
+    monkeypatch.setitem(zoo.FAMILIES, "deeplab", dataclasses.replace(
+        fam, build=lambda cfg, **kw: fam.build(cfg, stage_sizes=(1, 1, 1, 1),
+                                               aspp_features=16, **kw)))
+    flags = ["--device", "cpu"]
+    fields, ckpt, eval_file, step = cs.parking_train_phase(torch, work, 2, 4, 2, 1, 2, flags,
+                                                           device="cpu")
+    step()
+    assert fields["arch"] == "deeplab" and fields["chips"] == [2, 64, 64, 3]
+    assert fields["steps"] == 2 and len(fields["history"]) == 2
+    # the stem's conv and BN (4 tensors), 4 blocks of 3 convs + 3 BNs with a projection
+    assert fields["torch_weights_tensors"] == 5 + 4 * (4 * 5)
+    assert fields["f32_loss_rel_err"] == 0.0
+    assert fields["f64_grad_max_abs_err_over_max_grad"] == 0.0
+    assert fields["peak_mem_gib"] is None
+    fields, launches, run_scene = cs.parking_phase(
+        torch, predict, evaluate, stitch, ckpt, work, (96, 96, 3), eval_file, 4, flags,
+        device="cpu")
+    assert fields["grid"] == [2, 2] and fields["nodata_tag"] is None
+    assert launches["parking"] == 1 and fields["output_shape"] == [96, 96, 1]
+    assert sorted((r["kernel"], r["buffer"], r["tile_mode"]) for r in fields["tune_rows"]) == [
+        (32, 32, "chips"), (96, 0, "whole")]
+    assert all(r["device"] == "cpu" for r in fields["tune_rows"])
+    assert fields["eval_pixels"] == 4 * 64 * 64
     run_scene()

@@ -166,7 +166,7 @@ def test_predict_change_exits(small_change, jax_ckpt, tmp_path, rng):
             "--input-after", str(tmp_path / "before.npy")]
     with pytest.raises(SystemExit, match="--fold-bn currently supports the unet family"):
         cli.main(args + pair + ["--fold-bn"])
-    with pytest.raises(SystemExit, match="deeplab is not ported yet"):
+    with pytest.raises(SystemExit, match="change mode serves the siamese family, not deeplab"):
         cli.main(args + pair + ["--model", "deeplab"])
     with pytest.raises(SystemExit, match="change mode serves the siamese family"):
         cli.main(args + pair + ["--model", "unet"])

@@ -2,15 +2,22 @@
 predictors, whole mode, sweep mode and patches mode — against the JAX
 package's engine and ``inference/batch.py::run_batch_prediction`` on the
 same (bridged) weights, in float32 on the CPU (atol 1e-5 on
-probabilities; uint8 outputs within one step)."""
+probabilities; uint8 outputs within one step). The outputs' GeoTIFF meta
+(transform, CRS, no nodata tag) equals that of ``scripts/predict.py``'s
+outputs on the same input and a JAX ``state.msgpack`` of the same
+weights."""
 
+import functools
+import importlib.util
 import os
+import pathlib
 
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
+import optax
 
 from satellite_computervision_tpu.data.tfrecord import TFRecordWriter, build_example, read_tfrecord_file
 from satellite_computervision_tpu.geo import read_geotiff, write_geotiff
@@ -18,11 +25,15 @@ from satellite_computervision_tpu.inference import TiledInferenceEngine as JaxEn
 from satellite_computervision_tpu.inference.batch import run_batch_prediction
 from satellite_computervision_tpu.inference.mixer import MixerInfo, write_mixer
 from satellite_computervision_tpu.models import UNet as JaxUNet
+from satellite_computervision_tpu.train import save_checkpoint as jax_save_checkpoint
+from satellite_computervision_tpu.train.trainer import TrainState
 from satellite_computervision_tpu_torch import predict as cli
 from satellite_computervision_tpu_torch.models import UNet, flax_to_torch
 from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
 from satellite_computervision_tpu_torch.train.config import SOLAR_CONFIG
+from test_torch_evaluate import _shaped_state
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODEL = dict(n_classes=1, filters=(4, 8), factors=(2, 2), head="sigmoid",
              space_to_depth=True)
 GEOM = ["--kernel", "16", "--buffer", "8", "--batch-size", "4"]
@@ -49,6 +60,30 @@ def served(tmp_path_factory):
     return ckpt, jmodel, v
 
 
+@pytest.fixture(scope="module")
+def jax_cli(served, tmp_path_factory):
+    """``run(argv) -> None``: ``scripts/predict.py`` on a JAX
+    ``state.msgpack`` of the served weights (its U-Net at the fixture's
+    widths, its state template from shapes; it serves in bfloat16)."""
+    _, jmodel, v = served
+    spec = importlib.util.spec_from_file_location("jax_predict_cli_meta",
+                                                  ROOT / "scripts" / "predict.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.UNet = functools.partial(JaxUNet, filters=MODEL["filters"], factors=MODEL["factors"])
+    mod.create_train_state = _shaped_state
+    ckpt = tmp_path_factory.mktemp("jax_served")
+    tx = optax.adam(1e-3)
+    jax_save_checkpoint(str(ckpt / "best"), TrainState(
+        step=jnp.asarray(3, jnp.int32), params=v["params"], batch_stats=v["batch_stats"],
+        opt_state=tx.init(v["params"]), apply_fn=jmodel.apply, tx=tx), step=3)
+
+    def run(argv):
+        mod.main(["--ckpt", str(ckpt)] + [a for a in argv if a not in ("--device", "cpu")])
+
+    return run
+
+
 def _jax_engine(served, **kw):
     _, jmodel, v = served
     return JaxEngine.from_model(jmodel, v, **{**ENGINE, **kw})
@@ -61,38 +96,43 @@ def _swath(rng, h=100, w=60):
     return scene
 
 
-def test_scene_banded_culled_cog_predictor3(tmp_path, rng, served, capsys):
+def test_scene_banded_culled_cog_predictor3(tmp_path, rng, served, jax_cli, capsys):
     """A tall GeoTIFF with a nodata tag: read lazily, culled by the tag's
     value, banded, written as a float COG with predictor 3."""
     scene = _swath(rng)
     src = str(tmp_path / "swath.tif")
     write_geotiff(src, scene, transform=TF, crs="EPSG:32617", nodata=0.0)
     out = str(tmp_path / "pred.tif")
+    flags = ["--fold-bn", "--device", "cpu", "--max-rows", "48", "--cog", "--predictor", "3",
+             *GEOM]
     assert cli.main(["scene", "--input", src, "--ckpt", served[0], "--output", out,
-                     "--fold-bn", "--device", "cpu", "--max-rows", "48", "--cog",
-                     "--predictor", "3", *GEOM]) == out
+                     *flags]) == out
     assert "streamed banded, cog" in capsys.readouterr().out
     arr, meta = read_geotiff(out)
     want = np.asarray(_jax_engine(served, max_rows=48, nodata=0.0).predict_scene(scene))
     assert arr.shape == (100, 60, 1) and arr.dtype == np.float32
     np.testing.assert_allclose(arr, want, rtol=0, atol=1e-5)
     assert meta["crs"] == "EPSG:32617" and tuple(meta["transform"]) == TF
-    assert meta["nodata"] == 0.0
+    # the input's tag culls; the output carries none, as the JAX CLI's
+    jax_cli(["scene", "--input", src, "--output", str(tmp_path / "jax.tif"), *flags])
+    assert meta == read_geotiff(str(tmp_path / "jax.tif"))[1] and "nodata" not in meta
 
 
-def test_scene_uint8_predictor2(tmp_path, rng, served, capsys):
+def test_scene_uint8_predictor2(tmp_path, rng, served, jax_cli, capsys):
     scene = _swath(rng, 70, 90)
     np.save(tmp_path / "scene.npy", scene)
     out = str(tmp_path / "pred_u8.tif")
-    cli.main(["scene", "--input", str(tmp_path / "scene.npy"), "--ckpt", served[0],
-              "--output", out, "--fold-bn", "--device", "cpu", "--nodata", "0",
-              "--uint8", "--predictor", "2", "--compress", "lzw", *GEOM])
+    flags = ["--input", str(tmp_path / "scene.npy"), "--fold-bn", "--device", "cpu",
+             "--nodata", "0", "--uint8", "--predictor", "2", "--compress", "lzw", *GEOM]
+    cli.main(["scene", "--ckpt", served[0], "--output", out, *flags])
     assert "chips carry valid pixels" in capsys.readouterr().out
     arr, meta = read_geotiff(out)
     want = np.asarray(_jax_engine(
         served, nodata=0.0, output_transform=lambda p: (p * 255.0).astype(jnp.uint8)
     ).predict_scene(scene))
-    assert arr.dtype == np.uint8 and arr.shape == (70, 90, 1) and meta["nodata"] == 0.0
+    assert arr.dtype == np.uint8 and arr.shape == (70, 90, 1)
+    jax_cli(["scene", "--output", str(tmp_path / "jax.tif"), *flags])
+    assert meta == read_geotiff(str(tmp_path / "jax.tif"))[1] and "nodata" not in meta
     # a probability within float noise of a /255 step may land one lower
     assert np.abs(arr.astype(int) - want.astype(int)).max() <= 1
 
@@ -126,7 +166,7 @@ def test_predictor_dtype_errors_at_parse_time(tmp_path, flags, capsys):
 
 
 @pytest.mark.parametrize("banded", [False, True], ids=["pipelined", "banded"])
-def test_sweep_shards_and_bucket(tmp_path, rng, served, capsys, banded):
+def test_sweep_shards_and_bucket(tmp_path, rng, served, jax_cli, capsys, banded):
     """Shard 0 of 2 takes scenes 0 and 2 (round robin); --bucket pads each
     scene to a multiple of 32 and crops back (--max-rows streams each scene
     banded instead, where --bucket is a no-op)."""
@@ -140,10 +180,10 @@ def test_sweep_shards_and_bucket(tmp_path, rng, served, capsys, banded):
         np.save(indir / f"s{i}.npy", scene)
     outdir = tmp_path / "out"
     extra = ["--max-rows", "40"] if banded else []
-    written = cli.main(["sweep", "--input", str(indir), "--ckpt", served[0], "--outdir",
-                        str(outdir), "--fold-bn", "--device", "cpu", "--nodata", "0",
-                        "--shard-index", "0", "--shard-count", "2", "--bucket", "32",
-                        "--prefetch", "1", *extra, *GEOM])
+    flags = ["--input", str(indir), "--fold-bn", "--device", "cpu", "--nodata", "0",
+             "--shard-index", "0", "--shard-count", "2", "--bucket", "32", "--prefetch", "1",
+             *extra, *GEOM]
+    written = cli.main(["sweep", "--ckpt", served[0], "--outdir", str(outdir), *flags])
     text = capsys.readouterr().out
     assert "MPix/s end-to-end" in text and ("no-op" in text) == banded
     assert written == [str(outdir / "s0_pred.tif"), str(outdir / "s2_pred.tif")]
@@ -156,8 +196,13 @@ def test_sweep_shards_and_bucket(tmp_path, rng, served, capsys, banded):
         else:
             padded = np.pad(scene, ((0, -h % 32), (0, -w % 32), (0, 0)), mode="edge")
             want = np.asarray(_jax_engine(served, nodata=0.0).predict_scene(padded))[:h, :w]
-        assert arr.shape == (h, w, 1) and meta["nodata"] == 0.0
+        assert arr.shape == (h, w, 1)
         np.testing.assert_allclose(arr, want, rtol=0, atol=1e-5)
+    jax_cli(["sweep", "--outdir", str(tmp_path / "jax_out"), *flags])
+    for path in written:
+        meta = read_geotiff(path)[1]
+        assert meta == read_geotiff(str(tmp_path / "jax_out" / os.path.basename(path)))[1]
+        assert "nodata" not in meta
 
 
 def test_sweep_same_stem_names_and_mixed_nodata(tmp_path, rng, served):

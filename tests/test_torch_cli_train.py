@@ -101,7 +101,7 @@ def test_zoo_unet_family_matches_jax(name, classes):
     np.testing.assert_allclose(loss_fn(torch.from_numpy(y), torch.from_numpy(p)).numpy(),
                                np.asarray(jloss_fn(y, p)), rtol=1e-5, atol=1e-6)
     with pytest.raises(KeyError):
-        zoo.get_family("deeplab")  # not ported yet
+        zoo.get_family("acnn")  # not ported yet
 
 
 def test_example_twin_runs_on_cpu(tmp_path):

@@ -8,6 +8,8 @@ JAX, hence ``--noconftest``):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,7 @@ import torch
 from satellite_computervision_tpu_torch.data.pipeline import make_preprocess_fn
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 from satellite_computervision_tpu_torch.kernels import preprocess, stitch
-from satellite_computervision_tpu_torch.models import SiameseUNet, UNet
+from satellite_computervision_tpu_torch.models import DeepLabV3Plus, SiameseUNet, UNet
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +60,7 @@ def test_hann_stitch_kernel_matches_plain(cuda, k, buf, rows, cols, c_out):
     (16, 8, 1, 1, 3),     # one chip; k*C a multiple of 4, side*C not
     (512, 128, 4, 4, 1),  # the solar serving shape
     (256, 128, 8, 8, 1),  # the change serving shape: side 1.5 k
+    (512, 256, 8, 8, 1),  # the parking serving shape: 64 x 768² -> 4608²
 ])
 def test_hann_stitch_kernel_bit_equal(cuda, k, buf, rows, cols, c_out, apply_window):
     side = k + buf
@@ -338,3 +341,23 @@ def test_change_engine_on_card_matches_cpu(cuda, small_siamese, max_rows):
     assert stitch.hann_stitch.launches == before + (1 if max_rows is None else 10)
     want = engine(small_siamese, "cpu").predict_scene(stack)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("side", [64, 72], ids=["even", "odd-c5"])
+def test_deeplab_forward_on_card_matches_cpu(cuda, side):
+    """DeepLab v3+ (ResNet stages 1/1/1/1, ASPP 32) on the card (float32,
+    TF32 off) against the CPU, eval and train mode, within 1e-4 x
+    max|logit|: the explicit SAME pads, the -inf max-pool pad and the
+    bilinear resizes (72²: C5 of 5² resized to C2 of 18²)."""
+    torch.manual_seed(0)
+    model = DeepLabV3Plus(3, stage_sizes=(1, 1, 1, 1), aspp_features=32)
+    x = torch.rand((2, side, side, 3), generator=torch.Generator().manual_seed(2))
+    for train in (False, True):
+        cpu, card = (copy.deepcopy(model).train(train) for _ in range(2))
+        card.to(cuda)
+        with torch.no_grad():
+            want = cpu(x)["logits"]
+            got = card(x.to(cuda))["logits"].cpu()
+        assert got.shape == (2, side, side, 1)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * max(want.abs().max().item(), 1.0))
