@@ -94,7 +94,32 @@ line):
    (the table written with the card's name, read back by a serve without
    flags, which takes the winner) and ``python -m
    satellite_computervision_tpu_torch.evaluate`` on the eval TFRecords.
-12. ``profile``: one warm scene, three warm train steps, five warm
+12. ``timeseries_train``: the timeseries path at full ``TIMESERIES_CONFIG``
+   width — 32 seeded (7, 4, 72, 72) Sentinel-2-scaled series
+   ``s2_x_<month>_*.npy`` through ``python -m
+   satellite_computervision_tpu_torch.train --config timeseries --model
+   convlstm --series-dim 64`` (``LSTMModel``: 64 features, 4 outputs, 5
+   input steps) and then ``--model lstm_autoencoder`` (16 features, a
+   32-feature decoder over 6 steps), 6 steps of 16 each, bf16 autocast;
+   the kernels' launch counts over both runs (neither kernel is on this
+   path); per model the outputs finite and of their shape, the warm step,
+   chips/s, the profiler's busy share and device launches per step, peak
+   memory, and one float32 step on the card (TF32 off) against the CPU
+   from the same weights and batch.
+13. ``landcover_train``: the landcover path at full ``LANDCOVER_CONFIG``
+   width (8 classes, 256², batch 8) — the ACNN (16 blocks of 16) through
+   ``train --config landcover --model acnn`` on GZIP EE-schema TFRecords
+   (R/G/B/N and an 8-class ``lc``; 6 steps, 2 evals) and then ``python -m
+   satellite_computervision_tpu_torch.evaluate --model acnn`` on its
+   checkpoint (the counts sum to the eval pixels); the hierarchical model
+   through ``--model hierarchical`` on 16 npy chip sets (NAIP 256² x 4, a
+   6 x 32² x 4 series, labels); the hybrid at the preset's 256² through
+   the CLI, which must fail with the pool-factor error before writing
+   anything, as the JAX CLI fails; the full-width hybrid (U-Net 32…256,
+   pools 3/2/2/2, LSTM 64) at 240² through ``HybridChipDataset`` and
+   ``Trainer``. Per model the same figures and step check as
+   ``timeseries_train``.
+14. ``profile``: one warm scene, three warm train steps, five warm
    ``make_preprocess_fn`` calls, three warm change train steps, one warm
    change pair, one warm parking scene and three warm DeepLab train steps
    under ``torch.profiler``: device time by kernel, host time by op and
@@ -133,6 +158,14 @@ CHANGE_SCENE, CHANGE_EDGE, CHANGE_MAX_ROWS = (2048, 2048, 4), 512, 1024
 # the served scene (4096² x 3: a large part of a NAIP quarter-quad at 0.6 m)
 PARKING_FILES, PARKING_CHIPS, PARKING_STEPS, PARKING_EPOCHS = 2, 16, 3, 2
 PARKING_SCENE = (4096, 4096, 3)
+# timeseries: (7, 4, 72, 72) series files, trimmed to the preset's 64²,
+# and steps of each of the two families' runs (batch 16, the preset's)
+TIMESERIES_FILES, TIMESERIES_SIDE, TIMESERIES_STEPS = 32, 72, 6
+# landcover: npy chip sets (NAIP 256² x 4, a 6 x 32² x 4 series, labels);
+# steps per epoch and epochs of each run (batch 8, the preset's); the
+# hybrid's U-Net side (256 does not round-trip its pools; 240 = 10 x 24)
+LANDCOVER_CHIPS, LANDCOVER_STEPS, LANDCOVER_EPOCHS = 16, 3, 2
+LANDCOVER_SERIES_SIDE, LANDCOVER_HYBRID_SIDE = 32, 240
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -741,6 +774,7 @@ def device_profile(torch, fn, calls=1):
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     return dict(wall_ms=wall, device_ms=busy if dev else "not measured",
                 device_busy_share=busy / wall if dev else "not measured",
+                device_launches=sum(r[2] for r in dev) if dev else "not measured",
                 top=[{"name": n[:90], "ms": ms, "count": c} for n, ms, c in dev[:12]],
                 host_top=[{"name": n[:90], "self_ms": ms, "count": c}
                           for n, ms, c in host[:12]])
@@ -1372,6 +1406,407 @@ def parking_phase(torch, predict, evaluate_cli, stitch, ckpt, work, shape, eval_
     return fields, launches, run_scene
 
 
+def _to(item, device, dtype=None):
+    """numpy arrays or tensors, and lists or tuples of them, as tensors on
+    ``device`` (floating ones cast to ``dtype`` when given)."""
+    import torch
+
+    if isinstance(item, (list, tuple)):
+        return type(item)(_to(a, device, dtype) for a in item)
+    t = item if isinstance(item, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(item))
+    return t.to(device, dtype) if dtype is not None and t.is_floating_point() else t.to(device)
+
+
+def _first(item, n):
+    """The first ``n`` chips of every array in ``item``."""
+    if isinstance(item, (list, tuple)):
+        return type(item)(_first(a, n) for a in item)
+    return item[:n]
+
+
+def step_vs_cpu(torch, build, state, loss_fn, pred_key, x, y, lr, device):
+    """One float32 train step (TF32 off) on ``device`` against the CPU from
+    the same weights (``state``, a CPU state_dict) and batch: (fields, loss
+    relative error, gradient error over the largest gradient)."""
+    from satellite_computervision_tpu_torch.train.checkpoint import build_empty
+    from satellite_computervision_tpu_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+
+    step_fn = make_train_step(loss_fn, pred_key)
+    results = []
+    for dev in ("cpu", device):
+        ref = build_empty(build)
+        ref.load_state_dict({n: t.clone() for n, t in state.items()}, assign=True)
+        ref = ref.to(dev, torch.float32)
+        loss = float(step_fn(create_train_state(ref, lr),
+                             (_to(x, dev, torch.float32), _to(y, dev, torch.float32)))["loss"])
+        results.append((loss, {n: p.grad.detach().cpu() for n, p in ref.named_parameters()
+                               if p.grad is not None}))
+    (cpu_loss, cpu_g), (dev_loss, dev_g) = results
+    g_scale = max(g.abs().max().item() for g in cpu_g.values())
+    grad_err = max((dev_g[n] - g).abs().max().item() for n, g in cpu_g.items()) / g_scale
+    loss_rel = abs(dev_loss - cpu_loss) / abs(cpu_loss)
+    return dict(loss=[dev_loss, cpu_loss], loss_rel_err=loss_rel,
+                grad_max_abs_err_over_max_grad=grad_err), loss_rel, grad_err
+
+
+def warm_step_fields(torch, trainer, x, y, batch, side, device):
+    """The warm train step on a batch already on ``device``: times, chips/s,
+    and (on CUDA) the profiler's busy share and device launches per step."""
+    def step():
+        trainer.train_step(trainer.state, (x, y))
+
+    step_ms = wall_ms(step, iters=10 if device == "cuda" else 1, device=device)
+    med = median(step_ms)
+    fields = dict(step_ms=step_ms, step_ms_median=med, chips_per_s=batch / (med / 1e3),
+                  mpix_per_s=batch * side * side / 1e6 / (med / 1e3))
+    if device == "cuda":
+        prof = device_profile(torch, step, calls=3)
+        fields.update(busy_share=prof["device_busy_share"],
+                      device_launches_per_step=prof["device_launches"] / 3,
+                      profile_top=prof["top"][:6])
+    return fields, step
+
+
+def kernel_counts(pre, stitch):
+    return {"hann_stitch": stitch.hann_stitch.launches,
+            "fused_preprocess": pre.fused_preprocess.launches}
+
+
+def zero_counts(pre, stitch):
+    stitch.hann_stitch.launches = 0
+    pre.fused_preprocess.launches = 0
+
+
+def synthesize_series(root, n, t, bands, side, seed):
+    """``n`` (t, bands, side, side) float32 Sentinel-2-scaled series
+    ``s2_x_<month>_<i>.npy`` under ``root`` (the start month in the stem's
+    third ``_``-part, as the LSTM autoencoder's dataset reads it): per band
+    a level, a seasonal cycle of period 6 from the start month, a few
+    brighter fields, noise; in [0, 10000]. Returns the glob."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        month = int(rng.integers(0, 12))
+        level = rng.uniform(500.0, 3000.0, (1, bands, 1, 1))
+        season = 1.0 + 0.3 * np.sin(2 * np.pi * (month + np.arange(t)) / 6.0)
+        arr = level * season[:, None, None, None] + rng.normal(0, 150.0, (t, bands, side, side))
+        for _ in range(3):
+            y, x = rng.integers(0, side - side // 4, 2)
+            arr[:, :, y : y + side // 4, x : x + side // 4] *= rng.uniform(1.2, 1.8)
+        np.save(os.path.join(root, f"s2_x_{month}_{i:03d}.npy"),
+                np.clip(arr, 0, 10000).astype(np.float32))
+    return os.path.join(root, "*.npy")
+
+
+def timeseries_train_phase(torch, pre, stitch, work, n_files, side, series_dim, batch, steps,
+                           extra_flags=(), seed=SEED, device="cuda"):
+    """The timeseries path: ``n_files`` seeded (7, 4, side, side) series
+    through ``python -m satellite_computervision_tpu_torch.train --config
+    timeseries --model convlstm --series-dim series_dim``, then ``--model
+    lstm_autoencoder``, each ``steps`` steps of ``batch``; the kernels'
+    counts over both runs (no kernel is on this path); per model the warm
+    step, chips/s, busy share, launches per step, one float32 step on
+    ``device`` against the CPU. Returns (fields, counts, warm steps)."""
+    from satellite_computervision_tpu_torch.data.chip_generators import (
+        LSTMAutoencoderChipDataset,
+        LSTMChipDataset,
+    )
+    from satellite_computervision_tpu_torch.train import __main__ as train_cli
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    cfg = train_cli.CONFIGS["timeseries"]
+    t0 = time.perf_counter()
+    series = synthesize_series(os.path.join(work, "series"), n_files, cfg.n_time + 1,
+                               len(cfg.bands), side, seed + 110)
+    synth_s = time.perf_counter() - t0
+    files = sorted(glob.glob(series))
+    fields = dict(config="timeseries", files=n_files,
+                  series=[cfg.n_time + 1, len(cfg.bands), side, side], series_dim=series_dim,
+                  batch=batch, steps=steps, synth_seconds=synth_s,
+                  dtype="bfloat16 autocast" if device == "cuda" and "--no-bf16" not in
+                  extra_flags else "float32")
+    warm = {}
+    zero_counts(pre, stitch)
+    for family, cls in (("convlstm", LSTMChipDataset),
+                        ("lstm_autoencoder", LSTMAutoencoderChipDataset)):
+        ckpt = os.path.join(work, f"{family}_ckpt")
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        trainer, _, cli_s = run_cli(train_cli, [
+            "--config", "timeseries", "--model", family, "--series", series, "--series-dim",
+            str(series_dim), "--ckpt", ckpt, "--epochs", "1", "--steps-per-epoch", str(steps),
+            "--batch-size", str(batch), *extra_flags])
+        sync(device)
+        losses = [r["train"]["loss"] for r in trainer.history]
+        check(trainer.state.step == steps, f"{family}: {trainer.state.step} steps for {steps}")
+        check(all(math.isfinite(v) for v in losses), f"{family}: non-finite loss {losses}")
+        blob = torch.load(os.path.join(ckpt, "best", "model.pt"), map_location="cpu",
+                          weights_only=True)
+        check(blob.get("arch") == family, f"best/model.pt arch {blob.get('arch')!r}")
+
+        ds = cls(files, batch_size=batch, dim=(series_dim, series_dim),
+                 n_channels=len(cfg.bands), n_timesteps=cfg.n_time, seed=seed)
+        x, y = ds[0][:2]
+        with torch.no_grad():
+            out = trainer.state.model.eval()(*_to(x if isinstance(x, list) else [x], device))
+        shapes = {k: list(v.shape) for k, v in out.items()} if isinstance(out, dict) \
+            else list(out.shape)
+        finite = all(torch.isfinite(v).all() for v in (out.values() if isinstance(out, dict)
+                                                       else [out]))
+        check(finite, f"{family}: non-finite outputs")
+        step_fields, step = warm_step_fields(torch, trainer, _to(x, device), _to(y, device),
+                                             batch, series_dim, device)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+
+        fam = get_family(family)
+        state = {n: v.detach().float().cpu() for n, v in trainer.state.model.state_dict().items()}
+        loss_fn, pred_key = fam.loss(cfg)
+        compared, loss_rel, grad_err = step_vs_cpu(
+            torch, lambda: fam.build(cfg), state, loss_fn, pred_key, _first(x, 4), _first(y, 4),
+            cfg.learning_rate, device)
+        check(loss_rel <= 1e-4, f"{family}: f32 train loss disagrees with the CPU: {loss_rel}")
+        check(grad_err <= 1e-3, f"{family}: f32 gradients disagree with the CPU: {grad_err}")
+        fields[family] = dict(
+            arch=blob["arch"], model_kwargs=blob["model_kwargs"],
+            parameters=sum(p.numel() for p in trainer.state.model.parameters()),
+            outputs=shapes, history=trainer.history, cli_seconds=cli_s,
+            cli_chips_per_s=steps * batch / cli_s, step_vs_cpu=compared,
+            f32_loss_rel_err=loss_rel, f32_grad_max_abs_err_over_max_grad=grad_err,
+            peak_mem_gib=peak, **step_fields)
+        warm[family] = step
+    counts = kernel_counts(pre, stitch)
+    fields["launches"] = counts
+    return fields, counts, warm
+
+
+def synthesize_landcover_records(path, n, bands, response, side, seed):
+    """EE-schema GZIP TFRecord of ``n`` ``side``² chips: an 8-class ``lc``
+    plane of rectangular patches over class 0, each band a class-dependent
+    level plus noise in [0, 1]."""
+    from satellite_computervision_tpu_torch.data.tfrecord import TFRecordWriter, build_example
+
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(0.05, 0.6, (8, len(bands)))
+    with gzip.open(path, "wb", compresslevel=1) as f, TFRecordWriter(f, None) as writer:
+        for _ in range(n):
+            lc = landcover_classes(rng, side)
+            chip = means[lc] + rng.normal(0, 0.05, (side, side, len(bands)))
+            ex = {b: chip[..., i].astype(np.float32).reshape(-1) for i, b in enumerate(bands)}
+            ex[response] = lc.astype(np.float32).reshape(-1)
+            writer.write(build_example(ex))
+
+
+def landcover_classes(rng, side):
+    """A (side, side) int map of 8 classes: class 0 with rectangles of 1-7."""
+    lc = np.zeros((side, side), np.int64)
+    for _ in range(12):
+        y, x = rng.integers(0, side - side // 8, 2)
+        hh, ww = rng.integers(side // 16, side // 3, 2)
+        lc[y : y + hh, x : x + ww] = rng.integers(1, 8)
+    return lc
+
+
+def synthesize_landcover_npy(root, n, bands, side, series_t, series_side, seed):
+    """``n`` landcover chip sets under ``root``: NAIP ``naip/`` (bands x
+    side², 0-255), labels ``label/`` (1 x side², classes 0-7), S2 series
+    ``s2/`` (series_t x bands x series_side², 0-10000), the imagery and
+    series brighter by class. Returns (naip, series, label) globs."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(20.0, 200.0, (8, bands))
+    dirs = {name: os.path.join(root, name) for name in ("naip", "s2", "label")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    step = side // series_side
+    for i in range(n):
+        lc = landcover_classes(rng, side)
+        naip = means[lc].transpose(2, 0, 1) + rng.normal(0, 10.0, (bands, side, side))
+        coarse = means[lc[::step, ::step][:series_side, :series_side]].transpose(2, 0, 1) * 30.0
+        season = 1.0 + 0.3 * np.sin(2 * np.pi * np.arange(series_t) / series_t)
+        s2 = coarse[None] * season[:, None, None, None] + rng.normal(
+            0, 100.0, (series_t, bands, series_side, series_side))
+        for name, arr in (("naip", np.clip(naip, 0, 255).astype(np.float32)),
+                          ("s2", np.clip(s2, 0, 10000).astype(np.float32)),
+                          ("label", lc[None].astype(np.uint8))):
+            np.save(os.path.join(dirs[name], f"{name}_{i:03d}.npy"), arr)
+    return [os.path.join(dirs[k], "*.npy") for k in ("naip", "s2", "label")]
+
+
+def landcover_train_phase(torch, evaluate_cli, pre, stitch, work, n_chips, batch, steps, epochs,
+                          series_side, hybrid_side, extra_flags=(), seed=SEED, device="cuda"):
+    """The landcover path at the preset's width: the ACNN through ``train
+    --config landcover --model acnn`` on GZIP EE-schema TFRecords (R/G/B/N,
+    an 8-class ``lc``; ``epochs`` x ``steps`` steps of ``batch`` and an eval
+    each epoch), then ``evaluate --model acnn`` on its checkpoint; the
+    hierarchical model through ``--model hierarchical`` on ``n_chips`` npy
+    chip sets (NAIP, a ``series_side``² S2 series, labels); the hybrid at
+    the preset's side through the CLI, which must fail as JAX does; the
+    hybrid at ``hybrid_side`` (a side its pools round-trip) through
+    ``HybridChipDataset`` and ``Trainer``. Per model the warm step, chips/s,
+    busy share, launches per step, peak memory and one float32 step on
+    ``device`` against the CPU. Returns (fields, counts, warm steps)."""
+    from satellite_computervision_tpu_torch.data.chip_generators import (
+        ChipSource,
+        HybridChipDataset,
+    )
+    from satellite_computervision_tpu_torch.data.pipeline import (
+        get_eval_dataset,
+        make_preprocess_fn,
+    )
+    from satellite_computervision_tpu_torch.models.unet import flax_init_
+    from satellite_computervision_tpu_torch.train import __main__ as train_cli
+    from satellite_computervision_tpu_torch.train.checkpoint import build_empty
+    from satellite_computervision_tpu_torch.train.trainer import Trainer, create_train_state
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    cfg = train_cli.CONFIGS["landcover"]
+    k, bands = cfg.kernel_size, list(cfg.bands)
+    t0 = time.perf_counter()
+    data = os.path.join(work, "landcover_tfrecords")
+    os.makedirs(data, exist_ok=True)
+    train_files = [os.path.join(data, f"train-{i}.tfrecord.gz") for i in range(2)]
+    eval_file = os.path.join(data, "eval-0.tfrecord.gz")
+    for i, path in enumerate(train_files + [eval_file]):
+        synthesize_landcover_records(path, batch, bands, cfg.response, k, seed + 120 + i)
+    naip, series, labels = synthesize_landcover_npy(
+        os.path.join(work, "landcover_chips"), n_chips, len(bands), k, cfg.n_time, series_side,
+        seed + 130)
+    synth_s = time.perf_counter() - t0
+    dtype = "bfloat16 autocast" if device == "cuda" and "--no-bf16" not in extra_flags \
+        else "float32"
+    fields = dict(config="landcover", classes=cfg.num_classes, side=k, batch=batch,
+                  synth_seconds=synth_s, dtype=dtype)
+    warm = {}
+
+    def measured(family, trainer, x, y, side, cli_s, n_steps):
+        fam = get_family(family)
+        step_fields, step = warm_step_fields(torch, trainer, _to(x, device), _to(y, device),
+                                             batch, side, device)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+        model = trainer.state.model
+        state = {n: v.detach().float().cpu() for n, v in model.state_dict().items()}
+        loss_fn, pred_key = fam.loss(cfg)
+        compared, loss_rel, grad_err = step_vs_cpu(
+            torch, lambda: fam.build(cfg), state, loss_fn, pred_key, _first(x, 2),
+            _first(y, 2), cfg.learning_rate, device)
+        check(loss_rel <= 1e-4, f"{family}: f32 train loss disagrees with the CPU: {loss_rel}")
+        check(grad_err <= 1e-3, f"{family}: f32 gradients disagree with the CPU: {grad_err}")
+        warm[family] = step
+        return dict(model_kwargs=dict(model.kwargs),
+                    parameters=sum(p.numel() for p in model.parameters()),
+                    history=trainer.history, seconds=cli_s, chips_per_s_end_to_end=(
+                        n_steps * batch / cli_s), step_vs_cpu=compared,
+                    f32_loss_rel_err=loss_rel, f32_grad_max_abs_err_over_max_grad=grad_err,
+                    peak_mem_gib=peak, **step_fields)
+
+    zero_counts(pre, stitch)
+    # ---- the ACNN from TFRecords, evaluated each epoch, then the evaluate CLI
+    ckpt = os.path.join(work, "acnn_ckpt")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer, _, cli_s = run_cli(train_cli, [
+        "--config", "landcover", "--model", "acnn", "--train", os.path.join(data, "train-*"),
+        "--eval", eval_file, "--ckpt", ckpt, "--epochs", str(epochs), "--steps-per-epoch",
+        str(steps), "--batch-size", str(batch), *extra_flags])
+    sync(device)
+    check(trainer.state.step == steps * epochs, f"acnn: {trainer.state.step} steps")
+    losses = [r[part]["loss"] for r in trainer.history for part in ("train", "val")]
+    check(all(math.isfinite(v) for v in losses), f"acnn: non-finite loss {losses}")
+    blob = torch.load(os.path.join(ckpt, "best", "model.pt"), map_location="cpu",
+                      weights_only=True)
+    check(blob.get("arch") == "acnn", f"best/model.pt arch {blob.get('arch')!r}")
+    preprocess = make_preprocess_fn(bands, cfg.response, axes=cfg.axes, splits=cfg.splits,
+                                    response_depth=cfg.num_classes, device=device)
+    raw = next(iter(get_eval_dataset([eval_file], bands + [cfg.response], kernel_size=k,
+                                     batch_size=batch, device=device)))
+    x, y = preprocess(raw, train=False)
+    fields["acnn"] = measured("acnn", trainer, x, y, k, cli_s, steps * epochs)
+    report, _, eval_s = run_cli(evaluate_cli, [
+        "--config", "landcover", "--model", "acnn", "--ckpt", ckpt, "--eval", eval_file,
+        *extra_flags])
+    counts = np.asarray(report["counts"])
+    check(counts.shape == (cfg.num_classes,) * 2 and counts.sum() == batch * k * k,
+          f"acnn confusion counts {counts.shape} sum to {counts.sum()}, not {batch * k * k}")
+    fields["acnn"].update(eval_seconds=eval_s, eval_pixels=int(counts.sum()),
+                          eval_overall=report["overall"])
+
+    # ---- the hierarchical model from npy chips
+    npy = ["--unet-source", f"naip={naip}", "--series", series, "--series-dim",
+           str(series_side), "--labels", labels]
+    ckpt = os.path.join(work, "hierarchical_ckpt")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer, _, cli_s = run_cli(train_cli, [
+        "--config", "landcover", "--model", "hierarchical", *npy, "--ckpt", ckpt,
+        "--epochs", "1", "--steps-per-epoch", str(steps * epochs), "--batch-size", str(batch),
+        *extra_flags])
+    sync(device)
+    check(trainer.state.step == steps * epochs, f"hierarchical: {trainer.state.step} steps")
+    losses = [r["train"]["loss"] for r in trainer.history]
+    check(all(math.isfinite(v) for v in losses), f"hierarchical: non-finite loss {losses}")
+    blob = torch.load(os.path.join(ckpt, "best", "model.pt"), map_location="cpu",
+                      weights_only=True)
+    check(blob.get("arch") == "hierarchical", f"best/model.pt arch {blob.get('arch')!r}")
+    sources = {"naip": ChipSource.named("naip", sorted(glob.glob(naip)))}
+    lstm_dim = (cfg.n_time, series_side, series_side, len(bands))
+    ds = HybridChipDataset(sources, s2_series_files=sorted(glob.glob(series)), lstm_dim=lstm_dim,
+                           label_files=sorted(glob.glob(labels)), batch_size=batch,
+                           unet_dim=(k, k), n_classes=cfg.num_classes, seed=seed)
+    x, y = ds[0]
+    sub = max(2, cfg.num_classes // 2)
+    y = (y, np.eye(sub, dtype=np.float32)[np.minimum(np.argmax(y, -1) // 2, sub - 1)])
+    fields["hierarchical"] = measured("hierarchical", trainer, x, y, k, cli_s, steps * epochs)
+
+    # ---- the hybrid: at the preset's side it cannot be built, as in JAX
+    try:
+        run_cli(train_cli, ["--config", "landcover", "--model", "hybrid", *npy, "--ckpt",
+                            os.path.join(work, "hybrid_cli_ckpt"), *extra_flags])
+        failed = None
+    except ValueError as e:
+        failed = str(e)
+    check(failed is not None and "does not survive the pool factors" in failed,
+          f"the hybrid at {k}² did not fail with the pool-factor error: {failed}")
+    check(not os.path.exists(os.path.join(work, "hybrid_cli_ckpt")),
+          "the refused hybrid run wrote a checkpoint directory")
+    fields["hybrid_at_preset_side"] = failed
+
+    # ---- the hybrid at a side its pools round-trip, through the library
+    fam = get_family("hybrid")
+    model = build_empty(fam.build, cfg).to_empty(device="cpu")
+    flax_init_(model, torch.Generator().manual_seed(seed))
+    model = model.to(device, memory_format=torch.channels_last)
+    loss_fn, pred_key = fam.loss(cfg)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(create_train_state(model, cfg.learning_rate), loss_fn, pred_key=pred_key,
+                      num_classes=cfg.num_classes, monitor=cfg.monitor,
+                      compute_dtype=torch.bfloat16 if dtype != "float32" else None)
+    ds = HybridChipDataset(sources, s2_series_files=sorted(glob.glob(series)), lstm_dim=lstm_dim,
+                           label_files=sorted(glob.glob(labels)), batch_size=batch,
+                           unet_dim=(hybrid_side, hybrid_side), n_classes=cfg.num_classes,
+                           seed=seed)
+
+    def batches():
+        while True:
+            for item in ds:
+                yield _to(item, device)
+
+    t0 = time.perf_counter()
+    trainer.fit(batches(), epochs=1, steps_per_epoch=steps * epochs, log_fn=lambda r: None)
+    sync(device)
+    fit_s = time.perf_counter() - t0
+    check(trainer.state.step == steps * epochs, f"hybrid: {trainer.state.step} steps")
+    check(math.isfinite(trainer.history[0]["train"]["loss"]), "hybrid: non-finite loss")
+    x, y = ds[0]
+    fields["hybrid"] = measured("hybrid", trainer, x, y, hybrid_side, fit_s, steps * epochs)
+    fields["hybrid"]["unet_side"] = hybrid_side
+    counts = kernel_counts(pre, stitch)
+    fields["launches"] = counts
+    return fields, counts, warm
+
+
 def main():
     import torch
 
@@ -1389,8 +1824,10 @@ def main():
     from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
     from satellite_computervision_tpu_torch.train.config import (
         CHANGE_CONFIG,
+        LANDCOVER_CONFIG,
         PARKING_CONFIG,
         SOLAR_CONFIG,
+        TIMESERIES_CONFIG,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1574,6 +2011,22 @@ def main():
     emit("parking", **parking)
     serving_launches.update(parking_launches)
 
+    # ---- the timeseries families (ConvLSTM, LSTM autoencoder) and the
+    # landcover families (ACNN, hierarchical, hybrid): no kernel on these
+    # paths; their counts are taken over each
+    timeseries, ts_counts, ts_steps = timeseries_train_phase(
+        torch, pre, stitch, work, TIMESERIES_FILES, TIMESERIES_SIDE,
+        TIMESERIES_CONFIG.kernel_size, TIMESERIES_CONFIG.batch_size, TIMESERIES_STEPS)
+    emit("timeseries_train", **timeseries)
+    landcover, lc_counts, lc_steps = landcover_train_phase(
+        torch, evaluate_cli, pre, stitch, work, LANDCOVER_CHIPS, LANDCOVER_CONFIG.batch_size,
+        LANDCOVER_STEPS, LANDCOVER_EPOCHS, LANDCOVER_SERIES_SIDE, LANDCOVER_HYBRID_SIDE)
+    emit("landcover_train", **landcover)
+    new_paths = {"timeseries_train": ts_counts, "landcover_train": lc_counts}
+    serving_launches.update({p: c["hann_stitch"] for p, c in new_paths.items()})
+    train_by_path = {"train": train_launches["fused_preprocess"],
+                     **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
+
     # ---- where a warm scene's and a warm train step's device time goes
     emit("profile", what="scene", **device_profile(torch, run_dev))
     emit("profile", what="train_step", calls=3, **device_profile(torch, train_step, calls=3))
@@ -1606,7 +2059,7 @@ def main():
         {"name": "fused_preprocess", "route": "cuda",
          "source": "satellite_computervision_tpu_torch/csrc/fused_preprocess.cu",
          "replaces": "satellite_computervision_tpu/pallas/preprocess.py:135",
-         "launches": train_launches["fused_preprocess"],
+         "launches": sum(train_by_path.values()), "launches_by_path": train_by_path,
          "max_abs_err": max(c["max_abs_err"] for c in pre_path.values()),
          "ms": pre_path["augment"]["ms"], "device_ms": pre_path["augment"]["device_ms"],
          "plain_ms": pre_path["augment"]["plain_ms"],

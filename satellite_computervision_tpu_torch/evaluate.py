@@ -16,8 +16,11 @@ it. ``--ckpt`` holds ``best/model.pt`` (the port's format) or
 bfloat16, as the JAX CLI serves it; on the CPU (``--device cpu``) in
 float32.
 
-Not ported yet: ``--model acnn``, and the reference Keras ``.h5`` mode
-(``--h5``, ``--family``, ``--no-fold``).
+``--model`` takes the single-input TFRecord families: ``unet``, ``deeplab``
+and ``acnn`` (the ACNN of the landcover preset, 8 one-hot classes).
+
+Not ported yet: the reference Keras ``.h5`` mode (``--h5``, ``--family``,
+``--no-fold``).
 """
 
 from __future__ import annotations
@@ -53,8 +56,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = ap.parse_args(argv)
 
-    if args.model == "acnn":
-        sys.exit("--model acnn is not ported yet")
     for flag, given in (("--h5", args.h5), ("--family", args.family),
                         ("--no-fold", args.no_fold)):
         if given:

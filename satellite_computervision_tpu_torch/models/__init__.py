@@ -1,5 +1,7 @@
-"""The U-Net, Siamese U-Net and DeepLab v3+ families (PyTorch), the
-U-Net's BN folding, the flax weight bridge, losses and metrics."""
+"""The model families (PyTorch): U-Net, Siamese U-Net, DeepLab v3+,
+ConvLSTM and LSTM autoencoder, ACNN and hierarchical ACNN, hybrid U-Net +
+ConvLSTM; the U-Net's BN folding, the flax weight bridge, losses and
+metrics."""
 
 from satellite_computervision_tpu_torch.models.blocks import (
     ASPP,
@@ -9,6 +11,7 @@ from satellite_computervision_tpu_torch.models.blocks import (
     EncoderBlock,
 )
 from satellite_computervision_tpu_torch.models import losses, metrics
+from satellite_computervision_tpu_torch.models.acnn import ACNN, ACNNTrunk, HierarchicalACNN
 from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
 from satellite_computervision_tpu_torch.models.deeplab import (
     BottleneckBlock,
@@ -17,7 +20,16 @@ from satellite_computervision_tpu_torch.models.deeplab import (
     export_torch_resnet_weights,
     load_torch_resnet_weights,
 )
+from satellite_computervision_tpu_torch.models.convlstm import (
+    ConvLSTM,
+    ConvLSTMCell,
+    LSTMAutoencoder,
+    LSTMModel,
+    LSTMStack,
+    LSTMStack2,
+)
 from satellite_computervision_tpu_torch.models.fold import fold_unet
+from satellite_computervision_tpu_torch.models.hybrid import HybridUNetLSTM, UNetTrunk
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet, flax_init_, unet_parking, unet_solar
 
@@ -32,6 +44,17 @@ __all__ = [
     "BottleneckBlock",
     "ResNetBackbone",
     "DeepLabV3Plus",
+    "ConvLSTMCell",
+    "ConvLSTM",
+    "LSTMStack",
+    "LSTMStack2",
+    "LSTMModel",
+    "LSTMAutoencoder",
+    "ACNNTrunk",
+    "ACNN",
+    "HierarchicalACNN",
+    "UNetTrunk",
+    "HybridUNetLSTM",
     "load_torch_resnet_weights",
     "export_torch_resnet_weights",
     "unet_solar",

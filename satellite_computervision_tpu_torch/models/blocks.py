@@ -17,6 +17,10 @@ came from (models/bridge.py maps one onto the other).
   affine lives in the conv weights, models/fold.py), and the decoder's
   post-concat BN is a per-channel affine ``affine_0_scale/bias``.
 - Blocks take and return NCHW tensors; the UNet converts at its edges.
+- ``resize_nearest`` is ``jax.image.resize(method="nearest")``, which
+  samples source pixel ``floor((i + 0.5) * in / out)``: torch's
+  ``"nearest-exact"``. Torch's ``"nearest"`` samples ``floor(i * in /
+  out)``, which agrees only at integer ratios.
 """
 
 from __future__ import annotations
@@ -180,6 +184,12 @@ class DecoderBlock(nn.Module):
                 x = getattr(self, f"BatchNorm_{i + 1}")(x)
             x = F.relu(x)
         return x
+
+
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """Nearest-neighbour resize of an NCHW tensor to ``size`` (H, W), as
+    ``jax.image.resize(..., method="nearest")`` does it."""
+    return F.interpolate(x, size=tuple(size), mode="nearest-exact")
 
 
 class ASPP(nn.Module):

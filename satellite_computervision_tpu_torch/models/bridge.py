@@ -1,6 +1,6 @@
 """Weight bridge: flax model variables (nested dicts of numpy arrays) ->
-the port's ``state_dict``, for the ``UNet``, the ``SiameseUNet`` and
-``DeepLabV3Plus``.
+the port's ``state_dict``, for every model of the zoo (U-Net, Siamese
+U-Net, DeepLab v3+, the ConvLSTM models, the ACNNs, the hybrid).
 
 The port's module names follow the flax tree, so a torch key
 ``DecoderBlock_0.Conv_1.weight`` reads from
@@ -10,7 +10,8 @@ leaves without a place and keys without a source, and raises. What
 changes on the way:
 
 - conv kernels go from HWIO to OIHW; a conv without a bias (DeepLab's
-  backbone and decoder, ``use_bias=False``) reads none;
+  backbone and decoder, a ConvLSTM's recurrent conv, ``use_bias=False``)
+  reads none;
 - transposed-conv kernels are flipped in space and go from HWIO to
   (in, out, kh, kw): flax's ``ConvTranspose`` (no kernel transpose)
   convolves the dilated input with the kernel as is, torch's

@@ -166,9 +166,10 @@ def load_model(ckpt_dir: str, device, s2d=None, fold_bn: bool = False,
     must be of the family ``arch``; for a unet ``s2d`` overrides its stem
     (a mismatching weight layout raises). ``best/state.msgpack`` (the JAX
     package's) is loaded into ``cfg``'s model of the family ``arch``: a
-    siamese as the zoo builds it; a unet with the stem ``s2d`` or, when
-    None, the config's, and if the weights do not fit that stem it retries
-    once with the stem flipped (an explicit ``s2d`` does not retry)."""
+    siamese, deeplab or acnn as the zoo builds it; a unet with the stem
+    ``s2d`` or, when None, the config's, and if the weights do not fit that
+    stem it retries once with the stem flipped (an explicit ``s2d`` does
+    not retry)."""
     if fold_bn and arch != "unet":
         raise ValueError("fold_bn supports the unet family only")
     best = os.path.join(ckpt_dir, "best")

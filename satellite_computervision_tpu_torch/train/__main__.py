@@ -1,5 +1,6 @@
-"""Config-driven training CLI: TFRecord workloads (the unet and deeplab
-families) and npy-chip change detection (the siamese family).
+"""Config-driven training CLI over the model zoo: TFRecord workloads (the
+unet, deeplab and acnn families) and npy-chip workloads (siamese, convlstm,
+lstm_autoencoder, hybrid, hierarchical).
 
 Port of ``scripts/train.py``::
 
@@ -10,35 +11,57 @@ Port of ``scripts/train.py``::
       --model deeplab --train 'naip/train-*.tfrecord.gz' \\
       --eval 'naip/eval-*.tfrecord.gz' --torch-weights resnet50.pth \\
       --ckpt runs/parking
+  python -m satellite_computervision_tpu_torch.train --config landcover \\
+      --model acnn --train 'lc/train-*.tfrecord.gz' --ckpt runs/acnn
   python -m satellite_computervision_tpu_torch.train --config change \\
       --before 'chips/before/*.npy' --after 'chips/after/*.npy' \\
       --labels 'chips/label/*.npy' --ckpt runs/change
+  python -m satellite_computervision_tpu_torch.train --config timeseries \\
+      --model convlstm --series 'chips/s2_series/*.npy' --ckpt runs/lstm
+  python -m satellite_computervision_tpu_torch.train --config landcover \\
+      --model hierarchical --unet-source naip='chips/naip/*.npy' \\
+      --series 'chips/s2_series/*.npy' --labels 'chips/label/*.npy' \\
+      --ckpt runs/landcover
 
 EE-schema GZIP TFRecords are read and batched (``data.pipeline``), moved
 to the device, preprocessed there (``make_preprocess_fn`` with the
 config's axes: per-channel ``axes=(0, 1)`` runs the CUDA
-``fused_preprocess``, the solar and parking presets' per-pixel ``(2,)`` the
-plain ops), and the model trains on the config's loss with Adam,
-evaluating each epoch and keeping the best-metric checkpoint in
-``<ckpt>/best/model.pt``, which the ``predict`` CLI serves. ``--model
-deeplab`` trains DeepLab v3+ on a ResNet-50; ``--torch-weights`` warm-starts
-its backbone from a local torchvision-layout ResNet ``state_dict``
-(``models.deeplab.load_torch_resnet_weights``: convs and BatchNorm
-statistics) and exits for any other family. The siamese family reads
-before/after/label ``.npy`` chips through
-``data.chip_generators.SiameseChipDataset`` (centre-trimmed to the
-config's training tile, colour and flip/rot90 augmented on the host),
-trains on train metrics (no eval stream), one epoch being the dataset's
-length unless ``--steps-per-epoch`` says otherwise, and keeps a
-``model.pt`` with ``arch`` ``siamese``, which ``predict change`` serves.
-``--bn-momentum`` and ``--s2d`` apply to the unet family only (the Siamese
-and DeepLab models keep their own momenta). On CUDA the forward runs in
-bfloat16 under autocast (``--no-bf16`` for float32); on the CPU
-(``--device cpu``) in float32.
+``fused_preprocess``, the presets' per-pixel ``(2,)`` the plain ops), and
+the model trains on the config's loss with Adam, evaluating each epoch
+and keeping the best-metric checkpoint in ``<ckpt>/best/model.pt``, which
+the ``predict`` and ``evaluate`` CLIs serve. ``--model deeplab`` trains
+DeepLab v3+ on a ResNet-50; ``--torch-weights`` warm-starts its backbone
+from a local torchvision-layout ResNet ``state_dict``
+(``models.deeplab.load_torch_resnet_weights``) and exits for any other
+family.
 
-Not ported yet: the other npy-chip families (``convlstm``,
-``lstm_autoencoder``, ``hybrid``, ``hierarchical``), ``acnn``, ``--orbax``
-and ``--remat``.
+The npy-chip families read ``.npy`` chips through
+``data.chip_generators`` on the host and train on train metrics (no eval
+stream), one epoch being the dataset's length unless
+``--steps-per-epoch`` says otherwise:
+
+- ``siamese``: before/after/label chips (``SiameseChipDataset``,
+  centre-trimmed to the config's training tile);
+- ``convlstm`` / ``lstm_autoencoder``: ``--series`` (T, C, H, W) chips
+  trimmed to ``--series-dim`` (``LSTMChipDataset`` /
+  ``LSTMAutoencoderChipDataset``; the autoencoder's start month is the
+  third ``_``-part of each file stem, and its sample weights are dropped);
+- ``hybrid`` / ``hierarchical``: ``--unet-source name=glob`` (repeatable;
+  the name picks the divisor, NaN mask and colour augmentation),
+  ``--series`` (S2) and optionally ``--series-s1`` (divided by -50), and
+  ``--labels`` (``HybridChipDataset``); the hierarchical model's
+  auxiliary head trains on classes merged pairwise (``class // 2``) and
+  needs ``num_classes >= 4``.
+
+The model is first run on the family's example inputs on the meta device,
+as the JAX CLI's ``init`` runs them: a model that cannot take its
+preset's shapes (the hybrid at the landcover and wetland presets' 256²)
+fails there, before any data is read. ``--bn-momentum`` and ``--s2d``
+apply to the unet family only. On CUDA the forward runs in bfloat16
+under autocast (``--no-bf16`` for float32); on the CPU (``--device cpu``)
+in float32.
+
+Not ported yet: ``--orbax`` and ``--remat``.
 """
 
 from __future__ import annotations
@@ -47,10 +70,17 @@ import argparse
 import glob
 import sys
 
+import numpy as np
 import torch
 
 from satellite_computervision_tpu_torch._device import resolve_device
-from satellite_computervision_tpu_torch.data.chip_generators import SiameseChipDataset
+from satellite_computervision_tpu_torch.data.chip_generators import (
+    ChipSource,
+    HybridChipDataset,
+    LSTMAutoencoderChipDataset,
+    LSTMChipDataset,
+    SiameseChipDataset,
+)
 from satellite_computervision_tpu_torch.data.pipeline import (
     get_eval_dataset,
     get_training_dataset,
@@ -63,7 +93,6 @@ from satellite_computervision_tpu_torch.train.config import CONFIGS
 from satellite_computervision_tpu_torch.train.trainer import Trainer, create_train_state
 from satellite_computervision_tpu_torch.train.zoo import FAMILIES
 
-# the JAX CLI's families; those missing from the port's zoo exit
 TFRECORD_FAMILIES = ("unet", "deeplab", "acnn")
 NPY_FAMILIES = ("siamese", "convlstm", "lstm_autoencoder", "hybrid", "hierarchical")
 
@@ -81,11 +110,20 @@ def main(argv=None):
     ap.add_argument("--config", choices=sorted(CONFIGS), default="solar")
     ap.add_argument("--model", choices=TFRECORD_FAMILIES + NPY_FAMILIES, default=None,
                     help="model family (default: the config's)")
-    ap.add_argument("--train", help="glob of training TFRecords (unet, deeplab)")
+    ap.add_argument("--train", help="glob of training TFRecords (tfrecord families)")
     ap.add_argument("--eval", help="glob of eval TFRecords")
+    # npy-chip family inputs
     ap.add_argument("--before", help="siamese: glob of before-chip npys")
     ap.add_argument("--after", help="siamese: glob of after-chip npys")
-    ap.add_argument("--labels", help="siamese: glob of label npys")
+    ap.add_argument("--labels", help="siamese/hybrid/hierarchical: glob of label npys")
+    ap.add_argument("--series",
+                    help="convlstm/lstm_autoencoder/hybrid/hierarchical: glob of (T,C,H,W) npys")
+    ap.add_argument("--series-s1", help="hybrid/hierarchical: optional S1 series glob "
+                    "(divisor -50)")
+    ap.add_argument("--series-dim", type=int, default=32,
+                    help="spatial side of timeseries chips")
+    ap.add_argument("--unet-source", action="append",
+                    help="hybrid/hierarchical: repeatable name=glob of unet-input chips")
     ap.add_argument("--ckpt", default="runs/default", help="checkpoint root")
     ap.add_argument("--epochs", type=int)
     ap.add_argument("--batch-size", type=int)
@@ -112,15 +150,12 @@ def main(argv=None):
 
     cfg = CONFIGS[args.config]
     args.model = args.model or cfg.family
-    if args.model not in FAMILIES:
-        sys.exit(f"--model {args.model} is not ported yet")
     family = FAMILIES[args.model]
     if args.torch_weights and args.model != "deeplab":
         sys.exit("--torch-weights applies to --model deeplab (the torchvision ResNet backbone)")
     if args.model in TFRECORD_FAMILIES and not args.train:
         sys.exit(f"--train tfrecord glob is required for {args.model}")
-    if args.model == "siamese" and not (args.before and args.after and args.labels):
-        sys.exit("siamese needs --before/--after/--labels npy globs")
+    _check_npy_flags(args, cfg)
     device = resolve_device(args.device)
     batch = args.batch_size or cfg.train_batch or cfg.batch_size
     epochs = args.epochs or cfg.epochs
@@ -137,7 +172,12 @@ def main(argv=None):
     # weight and statistic from the seed (a ResNet-50 DeepLab's 40 M draws
     # take seconds on the host; drawing them twice, once in the
     # constructor, doubled that)
-    model = build_empty(family.build, cfg, **kw).to_empty(device="cpu")
+    model = build_empty(family.build, cfg, **kw)
+    # the example inputs through the meta model, as the JAX CLI's init runs
+    # them: a model that cannot take its preset's shapes fails here
+    with torch.no_grad():
+        model.eval()(*(torch.from_numpy(a).to("meta") for a in family.example_inputs(cfg)))
+    model = model.to_empty(device="cpu")
     flax_init_(model, torch.Generator().manual_seed(args.seed))
     if args.torch_weights:
         loaded = load_torch_resnet_weights(model, args.torch_weights)
@@ -156,8 +196,8 @@ def main(argv=None):
           f"space-to-depth {getattr(model, 'space_to_depth', False)}")
 
     # ---- data
-    if args.model == "siamese":
-        train_batches, steps, eval_fn = _siamese_data(args, cfg, batch, device)
+    if args.model in NPY_FAMILIES:
+        train_batches, steps, eval_fn = _npy_data(args, cfg, batch, device)
     else:
         train_batches, steps, eval_fn = _tfrecord_data(args, cfg, batch, device)
 
@@ -173,24 +213,82 @@ def main(argv=None):
     return trainer
 
 
-def _siamese_data(args, cfg, batch, device):
-    """(train_batches, steps per epoch, eval_fn) of before/after/label npy
-    chips: batches of ``([before, after], labels)`` on ``device``, the
-    dataset cycled; no eval stream."""
+def _check_npy_flags(args, cfg):
+    """Exit before any work when an npy family lacks its globs."""
+    if args.model == "siamese" and not (args.before and args.after and args.labels):
+        sys.exit("siamese needs --before/--after/--labels npy globs")
+    if args.model in ("convlstm", "lstm_autoencoder") and not args.series:
+        sys.exit(f"{args.model} needs --series npy glob of (T, C, H, W) chips")
+    if args.model in ("hybrid", "hierarchical"):
+        if not (args.unet_source and args.series and args.labels):
+            sys.exit(f"{args.model} needs --unet-source name=glob, --series and --labels")
+        for spec in args.unet_source:
+            if not spec.partition("=")[2]:
+                sys.exit(f"--unet-source wants name=glob, got {spec!r}")
+    if args.model == "hierarchical" and cfg.num_classes < 4:
+        # with num_classes <= 3 the pairwise merge maps every class to
+        # sub-class 0: the auxiliary head would train on a constant label
+        sys.exit("--model hierarchical needs num_classes >= 4 (the auxiliary head trains "
+                 "on pairwise-merged classes; use --config landcover or another "
+                 "multi-class config)")
+
+
+def _npy_dataset(args, cfg, batch):
+    """The family's chip dataset from the CLI's globs."""
     # generator-fed training crops chips at the config's training tile
     tile, _ = cfg.training_geometry
-    ds = SiameseChipDataset(_globs(args.before), _globs(args.after), _globs(args.labels),
-                            batch_size=batch, unet_dim=(tile, tile), seed=args.seed)
+    k = (tile, tile)
+    if args.model == "siamese":
+        return SiameseChipDataset(_globs(args.before), _globs(args.after), _globs(args.labels),
+                                  batch_size=batch, unet_dim=k, seed=args.seed)
+    if args.model in ("convlstm", "lstm_autoencoder"):
+        cls = LSTMChipDataset if args.model == "convlstm" else LSTMAutoencoderChipDataset
+        return cls(_globs(args.series), batch_size=batch,
+                   dim=(args.series_dim, args.series_dim), n_channels=len(cfg.bands),
+                   n_timesteps=cfg.n_time, seed=args.seed)
+    sources = {}
+    for spec in args.unet_source:
+        name, _, pattern = spec.partition("=")
+        sources[name] = ChipSource.named(name, _globs(pattern))
+    return HybridChipDataset(
+        sources=sources, s2_series_files=_globs(args.series),
+        s1_series_files=_globs(args.series_s1) if args.series_s1 else None,
+        lstm_dim=(cfg.n_time, args.series_dim, args.series_dim, len(cfg.bands)),
+        label_files=_globs(args.labels), batch_size=batch, unet_dim=k,
+        n_classes=cfg.num_classes, seed=args.seed)
+
+
+def _to_device(item, device):
+    """numpy arrays, and lists or tuples of them, as tensors on ``device``."""
+    if isinstance(item, (list, tuple)):
+        return type(item)(_to_device(a, device) for a in item)
+    return torch.from_numpy(np.ascontiguousarray(item)).to(device)
+
+
+def _npy_data(args, cfg, batch, device):
+    """(train_batches, steps per epoch, eval_fn) of the npy-chip families:
+    the dataset's ``(x, y)`` items on ``device``, cycled; no eval stream."""
+    ds = _npy_dataset(args, cfg, batch)
     if len(ds) == 0:
         sys.exit("not enough chips for one batch")
+    wrap = None
+    if args.model == "hierarchical":
+        # the mid-depth auxiliary head trains on coarsened classes: adjacent
+        # classes merged pairwise (sub = class // 2)
+        sub = max(2, cfg.num_classes // 2)
+        eye = np.eye(sub, dtype=np.float32)
 
-    def to_device(a):
-        return torch.from_numpy(a).to(device)
+        def wrap(x, y):
+            return x, (y, eye[np.minimum(np.argmax(y, -1) // 2, sub - 1)])
 
     def train_batches():
         while True:
-            for x, y in ds:
-                yield [to_device(a) for a in x], to_device(y)
+            for item in ds:
+                # the LSTM autoencoder yields (x, y, weights); the step takes (x, y)
+                x, y = item[:2]
+                if wrap is not None:
+                    x, y = wrap(x, y)
+                yield _to_device(x, device), _to_device(y, device)
 
     return train_batches, args.steps_per_epoch or len(ds), None
 

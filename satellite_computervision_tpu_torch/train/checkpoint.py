@@ -4,9 +4,9 @@ A checkpoint is one file ``<dir>/<which>/model.pt`` (``which`` is
 ``best`` or ``latest``, as the JAX package's ``<dir>/best``): one
 ``torch.save`` of ``{"arch", "model_kwargs", "state_dict", "meta"}`` plus,
 when a training state is saved, ``"optimizer"`` (the optimizer's
-``state_dict``) and ``"step"``. ``arch`` names the model class
-(``"unet"``, ``"siamese"`` or ``"deeplab"``, :data:`ARCHS`); a file without
-it (written before the Siamese model was ported) holds a ``UNet``. ``model_kwargs``
+``state_dict``) and ``"step"``. ``arch`` names the model class, the zoo's
+family name (:data:`ARCHS`); a file without it (written before the
+Siamese model was ported) holds a ``UNet``. ``model_kwargs``
 are the constructor arguments (the model's ``kwargs``); ``meta`` is a
 JSON-able dict ``{"step", "metrics"}``. ``predict.load_model`` reads
 ``<dir>/best``.
@@ -28,14 +28,20 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from satellite_computervision_tpu_torch.models.acnn import ACNN, HierarchicalACNN
 from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
+from satellite_computervision_tpu_torch.models.convlstm import LSTMAutoencoder, LSTMModel
 from satellite_computervision_tpu_torch.models.deeplab import DeepLabV3Plus
+from satellite_computervision_tpu_torch.models.hybrid import HybridUNetLSTM
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet
 from satellite_computervision_tpu_torch.train import flax_msgpack
 
-Model = Union[UNet, SiameseUNet, DeepLabV3Plus]
-ARCHS = {"unet": UNet, "siamese": SiameseUNet, "deeplab": DeepLabV3Plus}
+Model = Union[UNet, SiameseUNet, DeepLabV3Plus, LSTMModel, LSTMAutoencoder, HybridUNetLSTM,
+              ACNN, HierarchicalACNN]
+ARCHS = {"unet": UNet, "siamese": SiameseUNet, "deeplab": DeepLabV3Plus,
+         "convlstm": LSTMModel, "lstm_autoencoder": LSTMAutoencoder, "hybrid": HybridUNetLSTM,
+         "acnn": ACNN, "hierarchical": HierarchicalACNN}
 
 
 def build_empty(build, *args, **kwargs) -> Model:

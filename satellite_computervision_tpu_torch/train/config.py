@@ -149,8 +149,82 @@ CHANGE_CONFIG = TrainConfig(
     family="siamese",
 )
 
+# ConvLSTM next-step timeseries regression (get_lstm_model
+# utils/model_tools.py:773-808; LSTMDataGenerator utils/processing.py:
+# 895-972: (T, C, H, W) npy series, /10000, random sequence rotation).
+TIMESERIES_CONFIG = TrainConfig(
+    name="timeseries",
+    bands=("B02", "B03", "B04", "B08"),
+    response="next",
+    kernel_size=64,
+    kernel_buffer=32,
+    batch_size=16,
+    epochs=20,
+    learning_rate=9e-4,
+    train_size=2000,
+    eval_size=500,
+    shuffle_buffer=2000,
+    loss="mse_4d",
+    num_classes=4,
+    monitor="loss",
+    family="convlstm",
+    n_time=6,
+)
+
+# Hierarchical landcover (hybrid / ACNN / hierarchical families; 8 classes
+# = get_hybrid_model's default, utils/model_tools.py:874-920; chips from
+# HybridDataGenerator utils/processing.py:1051-1184). At kernel_size 256
+# the hybrid's (3, 2, 2, 2) pools do not round-trip (256 -> 85 -> 42 -> 21
+# -> 10 -> 20 != 21), so the hybrid family fails to build here, as in the
+# JAX package; acnn and hierarchical train at 256.
+LANDCOVER_CONFIG = TrainConfig(
+    name="landcover",
+    bands=("R", "G", "B", "N"),
+    response="lc",
+    kernel_size=256,
+    kernel_buffer=128,
+    batch_size=8,
+    epochs=30,
+    learning_rate=9e-4,
+    train_size=4000,
+    eval_size=1000,
+    shuffle_buffer=4000,
+    loss="weighted_categorical_crossentropy",
+    num_classes=8,
+    monitor="mean_iou",
+    family="hybrid",
+    n_time=6,
+)
+
+# Wetland mapping (README capability; the reference's azure/
+# train_wetland.py driver is absent from its snapshot). S1+S2 timeseries
+# through the ConvLSTM branch and terrain/soil planes through the U-Net
+# branch of the hybrid model, binary wetland response. The same 256² as
+# landcover, so the hybrid fails to build at it, as in JAX.
+WETLAND_CONFIG = TrainConfig(
+    name="wetland",
+    bands=("VV", "VH", "B02", "B03", "B04", "B08"),
+    response="wetland",
+    kernel_size=256,
+    kernel_buffer=128,
+    batch_size=8,
+    epochs=30,
+    learning_rate=9e-4,
+    train_size=4000,
+    eval_size=1000,
+    shuffle_buffer=4000,
+    loss="weighted_categorical_crossentropy",
+    num_classes=2,  # not-wetland / wetland via the hybrid's softmax head
+    threshold=0.5,
+    family="hybrid",
+    n_time=6,
+)
+
 CONFIGS = {
     "solar": SOLAR_CONFIG,
     "parking": PARKING_CONFIG,
     "change": CHANGE_CONFIG,
+    "timeseries": TIMESERIES_CONFIG,
+    "landcover": LANDCOVER_CONFIG,
+    "wetland": WETLAND_CONFIG,
 }

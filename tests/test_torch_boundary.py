@@ -103,5 +103,6 @@ def test_new_modules_are_covered():
     for name in ("inference.staging", "inference.batch", "inference.mixer",
                  "inference.writers", "train.flax_msgpack", "models.siamese",
                  "data.chip_generators", "models.deeplab", "inference.tune",
-                 "train.evaluate", "evaluate"):
+                 "train.evaluate", "evaluate", "models.convlstm", "models.acnn",
+                 "models.hybrid", "ops.harmonics"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES

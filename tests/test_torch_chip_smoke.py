@@ -1,8 +1,9 @@
 """chip_smoke.py's serving phases (swath, sweep, whole, patches), its
-change-detection phases (change_train, change) and its parking phases
-(parking_train, parking) run end to end on the CPU at a tiny size with a
-narrow U-Net / Siamese U-Net / DeepLab, so the smoke run's control flow and
-checks are exercised before it reaches a card. On the
+change-detection phases (change_train, change), its parking phases
+(parking_train, parking) and its timeseries and landcover training phases
+(timeseries_train, landcover_train) run end to end on the CPU at a tiny
+size with narrow models, so the smoke run's control flow and checks are
+exercised before it reaches a card. On the
 CPU ``hann_stitch`` runs its plain version, whose calls are counted here
 as the kernel's launches would be."""
 
@@ -16,6 +17,7 @@ import torch
 
 from satellite_computervision_tpu_torch import evaluate, predict
 from satellite_computervision_tpu_torch.inference import tiles
+from satellite_computervision_tpu_torch.kernels import preprocess as pre
 from satellite_computervision_tpu_torch.kernels import stitch
 from satellite_computervision_tpu_torch.models import UNet
 from satellite_computervision_tpu_torch.train import zoo
@@ -132,3 +134,56 @@ def test_parking_phases_on_cpu(smoke, monkeypatch):
     assert all(r["device"] == "cpu" for r in fields["tune_rows"])
     assert fields["eval_pixels"] == 4 * 64 * 64
     run_scene()
+
+
+def _narrow(monkeypatch, **families):
+    for name, kw in families.items():
+        fam = zoo.FAMILIES[name]
+        monkeypatch.setitem(zoo.FAMILIES, name, dataclasses.replace(
+            fam, build=lambda cfg, fam=fam, kw=kw, **more: fam.build(cfg, **kw, **more)))
+
+
+def test_timeseries_train_phase_on_cpu(smoke, monkeypatch):
+    """4 series of (7, 4, 20, 20) trimmed to 16², 2 steps of 2 for the
+    ConvLSTM model and the LSTM autoencoder."""
+    cs, _, work = smoke
+    _narrow(monkeypatch, convlstm=dict(features=4), lstm_autoencoder=dict(features=4))
+    fields, counts, steps = cs.timeseries_train_phase(torch, pre, stitch, work, 4, 20, 16, 2, 2,
+                                                      ["--device", "cpu"], device="cpu")
+    for step in steps.values():
+        step()
+    assert counts == fields["launches"] == {"hann_stitch": 0, "fused_preprocess": 0}
+    conv, ae = fields["convlstm"], fields["lstm_autoencoder"]
+    assert conv["arch"] == "convlstm" and conv["outputs"] == [2, 16, 16, 4]
+    assert ae["outputs"] == {"temporal": [2, 6, 16, 16, 4], "single": [2, 16, 16, 4]}
+    for f in (conv, ae):
+        assert f["f32_loss_rel_err"] == 0.0 and f["f32_grad_max_abs_err_over_max_grad"] == 0.0
+        assert len(f["history"]) == 1 and f["peak_mem_gib"] is None
+
+
+def test_landcover_train_phase_on_cpu(smoke, monkeypatch):
+    """landcover cut to 32² chips (which the narrow hybrid's (3, 2) pools
+    do not round-trip: the CLI must refuse it) and batch 2: the ACNN on
+    TFRecords with 2 evals and the evaluate CLI, the hierarchical model on
+    4 npy chip sets with 8² series, the hybrid at 24² through the
+    library."""
+    cs, _, work = smoke
+    monkeypatch.setitem(CONFIGS, "landcover", dataclasses.replace(
+        CONFIGS["landcover"], kernel_size=32, batch_size=2))
+    _narrow(monkeypatch, acnn=dict(n_blocks=2, features=4),
+            hierarchical=dict(n_blocks=2, features=4, lstm_features=4),
+            hybrid=dict(filters=(4, 8), factors=(3, 2), lstm_features=4))
+    fields, counts, steps = cs.landcover_train_phase(torch, evaluate, pre, stitch, work, 4, 2,
+                                                     1, 2, 8, 24, ["--device", "cpu"],
+                                                     device="cpu")
+    for step in steps.values():
+        step()
+    assert counts == {"hann_stitch": 0, "fused_preprocess": 0}
+    assert sorted(steps) == ["acnn", "hierarchical", "hybrid"]
+    assert fields["acnn"]["eval_pixels"] == 2 * 32 * 32 and len(fields["acnn"]["history"]) == 2
+    assert "32x32 does not survive the pool factors" in fields["hybrid_at_preset_side"]
+    assert fields["hybrid"]["unet_side"] == 24
+    assert fields["hierarchical"]["model_kwargs"]["sub_classes"] == 4
+    for name in steps:
+        assert fields[name]["f32_loss_rel_err"] == 0.0
+        assert fields[name]["f32_grad_max_abs_err_over_max_grad"] == 0.0

@@ -217,7 +217,7 @@ def test_train_change_then_predict_change(small_change, tmp_path, rng):
     pred, _ = read_geotiff(out)
     assert pred.shape == (60, 50, 1) and np.isfinite(pred).all()
     assert 0.0 <= pred.min() and pred.max() <= 1.0
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="convlstm needs --series npy glob"):
         train_cli.main(["--config", "change", "--model", "convlstm", "--device", "cpu"])
     with pytest.raises(SystemExit, match="needs --before/--after/--labels"):
         train_cli.main(["--config", "change", "--device", "cpu"])

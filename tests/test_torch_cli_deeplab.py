@@ -208,8 +208,8 @@ def test_deeplab_cli_exits(small_parking, tmp_path, monkeypatch):
              "--device", "cpu"]
     with pytest.raises(SystemExit, match="--torch-weights applies to --model deeplab"):
         train_cli.main(train + ["--model", "unet", "--torch-weights", "x.pth"])
-    with pytest.raises(SystemExit, match="--model acnn is not ported yet"):
-        train_cli.main(train + ["--model", "acnn"])
+    with pytest.raises(SystemExit, match="--train tfrecord glob is required for acnn"):
+        train_cli.main(["--config", "parking", "--model", "acnn", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--train tfrecord glob is required for deeplab"):
         train_cli.main(["--config", "parking", "--model", "deeplab", "--device", "cpu"])
     assert not (tmp_path / "run").exists()

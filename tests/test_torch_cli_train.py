@@ -100,8 +100,8 @@ def test_zoo_unet_family_matches_jax(name, classes):
     p = rng.uniform(0.05, 0.95, y.shape).astype(np.float32)
     np.testing.assert_allclose(loss_fn(torch.from_numpy(y), torch.from_numpy(p)).numpy(),
                                np.asarray(jloss_fn(y, p)), rtol=1e-5, atol=1e-6)
-    with pytest.raises(KeyError):
-        zoo.get_family("acnn")  # not ported yet
+    with pytest.raises(KeyError, match="unknown model family"):
+        zoo.get_family("resnet")
 
 
 def test_example_twin_runs_on_cpu(tmp_path):
