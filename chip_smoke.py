@@ -12,8 +12,8 @@ line):
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at a small shape and at the shape its path gives it (``hann_stitch`` on
    the engine's route, raw predictions with the window applied in the
-   kernel, bit-equal, and on pre-weighted chips, at the solar, the change
-   and the parking serving grids; ``fused_preprocess`` also
+   kernel, bit-equal, and on pre-weighted chips, at the solar, the change,
+   the parking and the acquire serving grids; ``fused_preprocess`` also
    with a NaN plane, negative and zero contrast and every flip/rotation,
    and at the parking preset's 16 x 512² x 4 chips, whose rows do not fit
    in shared memory: the kernel's streamed route; ``hann_stitch`` also at
@@ -119,7 +119,32 @@ line):
    pools 3/2/2/2, LSTM 64) at 240² through ``HybridChipDataset`` and
    ``Trainer``. Per model the same figures and step check as
    ``timeseries_train``.
-14. ``profile``: one warm scene, three warm train steps, five warm
+14. ``acquire``: imagery in, map out (the reference's run_local
+   change-detection workflow) — 6 "before" (2021-06) and 6 "after"
+   (2022-06, +1000 offset) raw Sentinel-2 L1C items of 4096² (B1, B2, B3,
+   B4, B8, B10, B11, B12 and QA60) made on the card from a seeded
+   ``torch.Generator`` (vegetated land whose raw cloud scores are below 0,
+   bright cloud patches, QA60 bits 10/11 on a share of pixels, a dark
+   vegetated block, a stripe with B3 = B11 = 0) -> ``pc.harmonize_to_old``
+   -> ``combined_mask & basic_qa_mask`` -> ``apply_mask`` -> NaN-median
+   composites, per-pixel z-normalized, NaN filled with 0 -> the (4096,
+   4096, 8) change pair -> ``cloud.pc.predict_scene`` (k256 + b128, batch
+   8, hann) with the ``change_train`` checkpoint -> ``numpy_to_raster(cog=
+   True)`` with an EPSG:32617 mixer, read back -> ``get_img_bounds`` in
+   EPSG:4326; seconds per stage, MPix/s, peak memory, the masked share and
+   ``hann_stitch`` launches (1). Then the top-left 512² of every item and
+   composite on the card against the same code on the CPU (masks and uint8
+   scores bit-equal, with raw scores below 0 and NaN indices present; the
+   median bit-equal with even and odd valid counts and all-masked pixels
+   NaN; the normalized composite within 1e-6 relative), and the served
+   stitch bit-equal to its plain version on the path's own predictions.
+15. ``calibrate``: the multi-state sweep — six 1920² x 6 scenes with the
+   example's per-state biases through ``equalize_collection`` on the host,
+   then served with the ``train`` checkpoint by ``predict_scene_batch``
+   (k512 + b128, batch 16, hann, uint8 out; one ``hann_stitch`` per scene)
+   and a confusion report per state; host seconds of calibration against
+   the seconds of serving.
+16. ``profile``: one warm scene, three warm train steps, five warm
    ``make_preprocess_fn`` calls, three warm change train steps, one warm
    change pair, one warm parking scene and three warm DeepLab train steps
    under ``torch.profiler``: device time by kernel, host time by op and
@@ -166,6 +191,9 @@ TIMESERIES_FILES, TIMESERIES_SIDE, TIMESERIES_STEPS = 32, 72, 6
 # hybrid's U-Net side (256 does not round-trip its pools; 240 = 10 x 24)
 LANDCOVER_CHIPS, LANDCOVER_STEPS, LANDCOVER_EPOCHS = 16, 3, 2
 LANDCOVER_SERIES_SIDE, LANDCOVER_HYBRID_SIDE = 32, 240
+# acquire: raw Sentinel-2 items per period (4096² L1C tiles), and the
+# top-left square of every item and composite held against the CPU
+ACQUIRE_ITEMS, ACQUIRE_SIDE, ACQUIRE_CROP = 6, 4096, 512
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1807,6 +1835,326 @@ def landcover_train_phase(torch, evaluate_cli, pre, stitch, work, n_chips, batch
     return fields, counts, warm
 
 
+# masking band names (JAX cloud/masking.py) of the synthetic L1C items, and
+# the composite's bands in compositing's names (cloud/pc.py) with the
+# masking name each is renamed from
+S2_RAW_BANDS = ("B1", "B2", "B3", "B4", "B8", "B10", "B11", "B12")
+COMPOSITE_BANDS = {"B02": "B2", "B03": "B3", "B04": "B4", "B08": "B8"}
+# raw DN levels: vegetated land (raw cloud score < 0), bright cloud (score
+# 100), and the dark vegetated block (B2 = 300 DN: score -0.175)
+S2_LAND = {"B1": 1300.0, "B2": 800.0, "B3": 900.0, "B4": 700.0, "B8": 2800.0, "B10": 20.0,
+           "B11": 1900.0, "B12": 1100.0}
+S2_CLOUD = {"B1": 4000.0, "B2": 5000.0, "B3": 5000.0, "B4": 5200.0, "B8": 5500.0,
+            "B10": 600.0, "B11": 3200.0, "B12": 2600.0}
+S2_DARK = {"B1": 700.0, "B2": 300.0, "B3": 500.0, "B4": 300.0, "B8": 3500.0, "B10": 1200.0,
+           "B11": 1600.0, "B12": 800.0}
+
+
+def synthesize_s2_items(torch, pc, n, side, crop, date, seed, device="cuda"):
+    """``n`` raw Sentinel-2 L1C items on ``device``: float32 DN planes keyed
+    by the masking module's names plus QA60, made from a seeded
+    ``torch.Generator`` there. Vegetated land (per-item levels, 5 % noise),
+    12 bright cloud patches, QA60 bit 10 on 4 % and bit 11 on 2 % of the
+    pixels; inside the top-left ``crop`` square a dark vegetated block
+    (raw cloud score < 0) and a stripe where B3 = B11 = 0 (NaN indices, and
+    masked as shadow in every item). Items dated after the 2022-01-25
+    cutoff carry the +1000 offset on every reflectance band."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    offset = pc.S2_OFFSET if date >= pc.S2_HARMONIZE_CUTOFF else 0.0
+    items = []
+    for _ in range(n):
+        bands = {}
+        for b in S2_RAW_BANDS:
+            level = S2_LAND[b] * rng.uniform(0.85, 1.15)
+            noise = torch.randn((side, side), generator=gen, device=device)
+            bands[b] = level + noise * (0.05 * S2_LAND[b] + 10.0)
+        for _ in range(12):
+            hh, ww = rng.integers(max(1, side // 64), max(2, side // 8), 2)
+            y, x = rng.integers(0, side - hh), rng.integers(0, side - ww)
+            for b in S2_RAW_BANDS:
+                bands[b][y : y + hh, x : x + ww] = S2_CLOUD[b]
+        for b in S2_RAW_BANDS:
+            bands[b][crop // 8 : 3 * crop // 8, crop // 8 : crop // 2] = S2_DARK[b]
+        for b in ("B3", "B11"):
+            bands[b][:, 5 * crop // 8 : 5 * crop // 8 + max(2, crop // 128)] = 0.0
+        for b in S2_RAW_BANDS:
+            bands[b] = bands[b].clamp_(min=0.0) + offset
+        u = torch.rand((side, side), generator=gen, device=device)
+        bands["QA60"] = (u < 0.04).float() * 1024.0 + (u > 0.98).float() * 2048.0
+        items.append({"datetime": date, "bands": bands})
+    return items
+
+
+def mask_item(torch, masking, pc, item):
+    """One item through the acquisition path: harmonized (after the
+    cutoff) before masking, the keep mask ``combined_mask &
+    basic_qa_mask``, the composite's bands (renamed) ``apply_mask``-ed to
+    NaN. Returns (harmonized bands, keep mask, (H, W, 4) masked layer)."""
+    after = item["datetime"] >= pc.S2_HARMONIZE_CUTOFF
+    bands = {k: v if k == "QA60" else pc.harmonize_to_old(v, after)
+             for k, v in item["bands"].items()}
+    keep = masking.combined_mask(bands) & masking.basic_qa_mask(bands["QA60"])
+    kept = masking.apply_mask({n: bands[m] for n, m in COMPOSITE_BANDS.items()}, keep)
+    return bands, keep, torch.stack([kept[n] for n in COMPOSITE_BANDS], dim=-1)
+
+
+def bit_equal(torch, a, b):
+    """Equal bits, NaN where NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def acquire_phase(torch, predict, stitch, pre, ckpt, work, side, n_items, crop, geometry,
+                  seed=SEED, device="cuda"):
+    """Imagery in, map out: ``n_items`` raw Sentinel-2 items of ``side``²
+    before (2021-06) and after (2022-06) made on the device -> harmonize ->
+    cloud/water/shadow and QA60 masks -> NaN-median composites -> per-pixel
+    z-normalization, NaN filled with 0 -> the 8-band change pair ->
+    ``cloud.pc.predict_scene(blend="hann")`` with the change checkpoint ->
+    ``numpy_to_raster(cog=True)`` -> ``read_geotiff`` -> ``get_img_bounds``
+    in EPSG:4326. The kernels' counts are set to 0 just before and read
+    just after. Then the top-left ``crop``² of every item and composite on
+    the device against the same code on the CPU, and the served stitch
+    against its plain version on the path's own chip predictions. Returns
+    (phase fields, launches)."""
+    from satellite_computervision_tpu_torch.cloud import compositing, masking, pc
+    from satellite_computervision_tpu_torch.geo import read_geotiff
+    from satellite_computervision_tpu_torch.geo.assembly import numpy_to_raster
+    from satellite_computervision_tpu_torch.geo.crs import transform_bounds
+    from satellite_computervision_tpu_torch.inference.batch import get_img_bounds
+    from satellite_computervision_tpu_torch.inference.mixer import MixerInfo
+    from satellite_computervision_tpu_torch.train.config import CONFIGS
+
+    kernel, buffer, batch = geometry
+    cpu = torch.device("cpu")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts(pre, stitch)
+    seconds = {}
+
+    t0 = time.perf_counter()
+    periods = {"before": synthesize_s2_items(torch, pc, n_items, side, crop, "2021-06-01",
+                                             seed + 80, device),
+               "after": synthesize_s2_items(torch, pc, n_items, side, crop, "2022-06-01",
+                                            seed + 81, device)}
+    sync(device)
+    seconds["synthesis"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    stacks, crops, kept_px = {}, [], 0
+    for name, items in periods.items():
+        layers = []
+        for item in items:
+            bands, keep, layer = mask_item(torch, masking, pc, item)
+            layers.append(layer)
+            kept_px += keep.sum()
+            # the checked crop: raw and harmonized bands, and the mask
+            crops.append((item["datetime"],
+                          *({k: v[:crop, :crop].clone() for k, v in d.items()}
+                            for d in (item["bands"], bands)), keep[:crop, :crop].clone()))
+        stacks[name] = torch.stack(layers)
+    sync(device)
+    seconds["masks"] = time.perf_counter() - t0
+    del periods, items, item, bands, keep, layer, layers
+
+    t0 = time.perf_counter()
+    pair = torch.cat([compositing.composite_stack(stacks[p], normalize=True, fill=0.0,
+                                                  device=device) for p in stacks], dim=-1)
+    sync(device)
+    seconds["composite"] = time.perf_counter() - t0
+
+    cfg = CONFIGS["change"]
+    served = predict.load_model(ckpt, torch.device(device), cfg=cfg, arch="siamese")
+    nb = len(COMPOSITE_BANDS)
+    chip_preds = []
+
+    def forward(chips):
+        out = served(chips[..., :nb], chips[..., nb:])["probs"]
+        chip_preds.append(out)
+        return out
+
+    t0 = time.perf_counter()
+    prob = pc.predict_scene(pair, forward, kernel=kernel, buffer=buffer, batch_size=batch,
+                            blend="hann", device=device)
+    sync(device)
+    seconds["predict"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    prob_host = prob.cpu().numpy()
+    affine = (10.0, 0.0, 500000.0, 0.0, -10.0, 3900000.0)
+    path = os.path.join(work, "acquire_change.tif")
+    numpy_to_raster(prob_host, {"transform": list(affine), "crs": "EPSG:32617"}, path, cog=True)
+    back, meta = read_geotiff(path)
+    mixer = MixerInfo(total_patches=1, patches_per_row=1, patch_dimensions=(side, side),
+                      affine=tuple(meta["transform"]), crs=meta["crs"])
+    bounds = get_img_bounds(back.shape, mixer, dst_crs="EPSG:4326")
+    seconds["write"] = time.perf_counter() - t0
+    launches = kernel_counts(pre, stitch)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    check(launches == {"hann_stitch": 1, "fused_preprocess": 0},
+          f"acquire: kernel launches {launches}, expected one hann_stitch")
+
+    # ---- where the device time of masking and compositing goes: the
+    # after items made again and one period masked and composited under
+    # the profiler
+    profiled = None
+    if device == "cuda":
+        items = synthesize_s2_items(torch, pc, n_items, side, crop, "2022-06-01", seed + 81,
+                                    device)
+
+        def mask_and_composite():
+            layers = [mask_item(torch, masking, pc, item)[2] for item in items]
+            compositing.composite_stack(torch.stack(layers), normalize=True, fill=0.0,
+                                        device=device)
+
+        mask_and_composite()
+        profiled = device_profile(torch, mask_and_composite)
+        del items
+
+    # ---- what came out: the map, its georeferencing and bounds
+    check(pair.shape == (side, side, 2 * nb) and bool(torch.isfinite(pair).all()),
+          f"change pair {tuple(pair.shape)} not finite")
+    check(back.shape == (side, side, 1) and np.array_equal(back, prob_host),
+          "the COG does not read back as written")
+    check(np.isfinite(back).all() and back.min() >= 0.0 and back.max() <= 1.0,
+          "probabilities not finite or outside [0, 1]")
+    check(tuple(meta["transform"]) == affine and meta["crs"] == "EPSG:32617",
+          f"georeferencing lost: {meta}")
+    left, bottom, right, top = transform_bounds(
+        affine[2], affine[5] + side * affine[4], affine[2] + side * affine[0], affine[5],
+        "EPSG:32617", "EPSG:4326")
+    check(bounds == [[bottom, left], [top, right]], f"bounds {bounds}")
+    check(-84.0 < left < right < -78.0 and 34.0 < bottom < top < 36.0,
+          f"EPSG:32617 bounds out of zone 17: {bounds}")
+
+    # ---- the served stitch against its plain version on the path's own
+    # chip predictions (launches made here are not the path's)
+    rows = cols = -(-side // kernel)
+    preds = torch.cat(chip_preds).float()[: rows * cols]
+    canvas = stitch.hann_stitch(preds, kernel, rows, cols, apply_window=True)
+    plain = stitch.hann_stitch_reference(preds, kernel, rows, cols, apply_window=True)
+    half = buffer // 2
+    stitch_err = (canvas - plain).abs().max().item()
+    check(stitch_err == 0.0, f"hann_stitch differs from its plain version: {stitch_err}")
+    check(torch.equal(canvas[half : half + side, half : half + side], prob),
+          "predict_scene's map is not the stitched canvas")
+
+    # ---- the crop of every item and composite against the CPU
+    score_raw, nan_index, layers_cpu = [], [], {p: [] for p in stacks}
+    for i, (date, raw, bands, keep) in enumerate(crops):
+        p = "before" if i < n_items else "after"
+        cb, ckeep, clayer = mask_item(torch, masking, pc, {
+            "datetime": date, "bands": {k: v.to(cpu) for k, v in raw.items()}})
+        layers_cpu[p].append(clayer)
+        check(torch.equal(keep.to(cpu), ckeep), f"item {i}: the card's mask differs from the CPU's")
+        check(torch.equal(masking.sentinel_cloud_score(bands).to(cpu),
+                          masking.sentinel_cloud_score(cb)),
+              f"item {i}: the card's uint8 cloud score differs from the CPU's")
+        check(bit_equal(torch, stacks[p][i % n_items][:crop, :crop].to(cpu), clayer),
+              f"item {i}: the card's masked bands differ from the CPU's")
+        score_raw.append(int((masking.raw_cloud_score(cb) < 0).sum()))
+        nan_index.append(int(torch.isnan(masking.normalized_difference(cb["B3"], cb["B11"])).sum()))
+    check(all(score_raw) and all(nan_index),
+          f"an item's crop lacks raw scores < 0 or NaN indices: {score_raw}, {nan_index}")
+    composite = {}
+    for p_i, p in enumerate(stacks):
+        cstack = torch.stack(layers_cpu[p])
+        counts = (~torch.isnan(cstack)).sum(0)
+        card_med = compositing.median_composite(stacks[p][:, :crop, :crop], device=device)
+        cpu_med = compositing.median_composite(cstack, device="cpu")
+        check(bit_equal(torch, card_med.to(cpu), cpu_med),
+              f"{p}: the card's median differs from the CPU's")
+        check(bool(torch.isnan(cpu_med[counts == 0]).all()) and bool((counts == 0).any()),
+              f"{p}: no all-masked pixel, or one that is not NaN")
+        even = ((counts % 2 == 0) & (counts > 0)).any().item()
+        odd = (counts % 2 == 1).any().item()
+        check(even and odd, f"{p}: the crop lacks even or odd valid counts")
+        card_norm = compositing.normalize_composite(card_med, device=device)
+        cpu_norm = compositing.normalize_composite(cpu_med, device="cpu")
+        norm_err = nan_aware_err(torch, card_norm.to(cpu), cpu_norm) / \
+            cpu_norm.nan_to_num().abs().max().item()
+        check(norm_err <= 1e-6, f"{p}: normalized composite {norm_err} relative from the CPU")
+        filled = torch.where(torch.isnan(card_norm), 0.0, card_norm)
+        check(torch.equal(pair[:crop, :crop, p_i * nb : (p_i + 1) * nb], filled),
+              f"{p}: the full composite's crop differs from the crop's composite")
+        composite[p] = dict(valid_counts=torch.bincount(counts.reshape(-1)).tolist(),
+                            normalized_max_rel_err=norm_err)
+    total = side * side * 2 * n_items
+    path_s = seconds["masks"] + seconds["composite"] + seconds["predict"] + seconds["write"]
+    fields = dict(
+        items=[n_items, n_items], item_shape=[side, side, len(S2_RAW_BANDS) + 1],
+        dates=["2021-06-01", "2022-06-01"], pair_shape=list(pair.shape),
+        geometry=list(geometry), chips=rows * cols, launches=launches, seconds=seconds,
+        path_seconds=path_s, mpix_per_s=side * side / 1e6 / path_s,
+        item_mpix_per_s=total / 1e6 / path_s, masked_share=1.0 - int(kept_px) / total,
+        peak_mem_gib=peak, profile_mask_and_composite_one_period=profiled,
+        crop=crop, crop_pixels_raw_score_below_0=score_raw,
+        crop_pixels_nan_index=nan_index, composite=composite,
+        stitch_max_abs_err=stitch_err, output_min=float(back.min()),
+        output_max=float(back.max()), crs=meta["crs"], bounds_epsg4326=bounds)
+    return fields, launches
+
+
+def calibrate_phase(torch, predict, stitch, pre, ckpt, shape, geometry, seed=SEED,
+                    device="cuda"):
+    """The multi-state sweep: one ``shape`` scene per state with the
+    example's radiometric biases through ``equalize_collection`` (host
+    numpy), then served with the solar checkpoint by
+    ``predict_scene_batch`` (hann, uint8 out) and a confusion report per
+    state. The kernels' counts are set to 0 just before serving and read
+    just after. Returns (phase fields, launches)."""
+    from satellite_computervision_tpu_torch.cloud.calibration import equalize_collection
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+    from satellite_computervision_tpu_torch.multistate_sweep import (
+        BIASES,
+        STATES,
+        state_report,
+        synth_state,
+    )
+
+    kernel, buffer, batch = geometry
+    rng = np.random.default_rng(seed + 90)
+    scenes, truths = zip(*(synth_state(rng, b, *shape) for b in BIASES))
+    t0 = time.perf_counter()
+    calibrated = equalize_collection(list(scenes))
+    host_s = time.perf_counter() - t0
+
+    def spread(ss):  # each state's largest band-median gap to the first's
+        return [float(np.abs(np.median(s, (0, 1)) - np.median(ss[0], (0, 1))).max())
+                for s in ss[1:]]
+
+    before, after = spread(scenes), spread(calibrated)
+    check(all(a < b for a, b in zip(after, before)),
+          f"calibration did not bring the states' medians together: {before} -> {after}")
+
+    served = predict.load_model(ckpt, torch.device(device), fold_bn=True)
+    engine = TiledInferenceEngine(lambda c: served(c)["probs"], kernel=kernel, buffer=buffer,
+                                  batch_size=batch, blend="hann", device=device,
+                                  output_transform=lambda p: (p * 255.0).to(torch.uint8))
+    stack = np.stack(calibrated)
+    zero_counts(pre, stitch)
+    sync(device)
+    t0 = time.perf_counter()
+    preds = engine.predict_scene_batch(stack)
+    sync(device)
+    serve_s = time.perf_counter() - t0
+    launches = kernel_counts(pre, stitch)
+    check(launches == {"hann_stitch": len(BIASES), "fused_preprocess": 0},
+          f"calibrate: kernel launches {launches}, expected one hann_stitch per scene")
+    preds = preds.cpu().numpy()
+    check(preds.dtype == np.uint8 and preds.shape == (len(BIASES),) + shape[:2] + (1,),
+          f"predictions {preds.dtype} {preds.shape}")
+    report = state_report(preds, truths)
+    check(list(report) == STATES and all(0.0 <= s["accuracy"] <= 1.0 for s in report.values()),
+          f"report {report}")
+    mpix = len(BIASES) * shape[0] * shape[1] / 1e6
+    return dict(states=STATES, biases=list(BIASES), scene=list(shape), geometry=list(geometry),
+                median_spread_before=before, median_spread_after=after,
+                calibration_host_seconds=host_s, serve_seconds=serve_s,
+                serve_mpix_per_s=mpix / serve_s, launches=launches, report=report), launches
+
+
 def main():
     import torch
 
@@ -1867,12 +2215,18 @@ def main():
     pk, pb, _ = PARKING_CONFIG.serving_geometry
     p_rows, p_cols = -(-PARKING_SCENE[0] // pk), -(-PARKING_SCENE[1] // pk)
     parking_shape = stitch_case(torch, stitch, pk, pb, p_rows, p_cols, 1, gen, timed=True)
+    # the acquire path's grid: the change geometry over a 4096² composite
+    # pair, 256 chips of 384² into a 4352² canvas
+    a_rows = -(-ACQUIRE_SIDE // ck)
+    acquire_shape = stitch_case(torch, stitch, ck, cb, a_rows, a_rows, 1, gen, timed=True)
     emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases,
-         change=change_shape, change_bands=change_bands, parking=parking_shape)
+         change=change_shape, change_bands=change_bands, parking=parking_shape,
+         acquire=acquire_shape)
     # the engine's route: the same products and adds in the same order, so
     # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
-    cases = [small, main_shape, change_shape, parking_shape] + band_cases + change_bands
+    cases = [small, main_shape, change_shape, parking_shape, acquire_shape] + band_cases \
+        + change_bands
     check(all(c["max_abs_err"] == 0.0 for c in cases),
           "hann_stitch(apply_window=True) is not bit-equal to its plain version")
     check(all(c["weighted_max_abs_err"] <= tol for c in cases),
@@ -1999,6 +2353,21 @@ def main():
     emit("change", **change)
     serving_launches.update(change_launches)
 
+    # ---- imagery in, map out: raw items masked and composited on the card,
+    # the change checkpoint over the pair; then the calibrated multi-state
+    # sweep served with the trained solar checkpoint
+    acquire, acquire_launches = acquire_phase(
+        torch, predict, stitch, pre, change_ckpt, work, ACQUIRE_SIDE, ACQUIRE_ITEMS,
+        ACQUIRE_CROP, CHANGE_CONFIG.serving_geometry)
+    emit("acquire", **acquire)
+    torch.cuda.empty_cache()
+    calibrate, calibrate_launches = calibrate_phase(
+        torch, predict, stitch, pre, os.path.join(work, "train_ckpt"), SCENE,
+        SOLAR_CONFIG.serving_geometry)
+    emit("calibrate", **calibrate)
+    serving_launches.update(acquire=acquire_launches["hann_stitch"],
+                            calibrate=calibrate_launches["hann_stitch"])
+
     # ---- parking lots: DeepLab v3+ (ResNet-50) trained on TFRecords from a
     # warm-start backbone, then served, tuned and evaluated
     parking_train, parking_ckpt, parking_eval, parking_step = parking_train_phase(
@@ -2024,6 +2393,7 @@ def main():
     emit("landcover_train", **landcover)
     new_paths = {"timeseries_train": ts_counts, "landcover_train": lc_counts}
     serving_launches.update({p: c["hann_stitch"] for p, c in new_paths.items()})
+    new_paths.update(acquire=acquire_launches, calibrate=calibrate_launches)
     train_by_path = {"train": train_launches["fused_preprocess"],
                      **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
 
@@ -2054,6 +2424,9 @@ def main():
              "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")},
          "parking_shape": {k: parking_shape[k] for k in (
+             "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")},
+         "acquire_shape": {k: acquire_shape[k] for k in (
              "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")}},
         {"name": "fused_preprocess", "route": "cuda",

@@ -5,8 +5,8 @@ reference's make_pred_dataset + doPrediction,
 utils/prediction_tools.py:159-226, 602-729): list the exported files,
 split tfrecords from the mixer json, predict the patches in batches on the
 device, write one prediction TFRecord per chunk of files for
-``earthengine upload``. Not ported yet: ``get_img_bounds`` (it needs the
-JAX package's ``geo/crs.py`` and ``geo/transforms.py``).
+``earthengine upload``; ``get_img_bounds`` gives a reassembled
+prediction's (optionally reprojected) bounds.
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ import torch
 
 from satellite_computervision_tpu_torch._device import resolve_device
 from satellite_computervision_tpu_torch.data.tfrecord import read_float_examples
+from satellite_computervision_tpu_torch.geo.crs import transform_bounds
+from satellite_computervision_tpu_torch.geo.transforms import array_bounds
+from satellite_computervision_tpu_torch.inference.mixer import MixerInfo
 from satellite_computervision_tpu_torch.inference.writers import write_tfrecord_predictions
 from satellite_computervision_tpu_torch.ops.normalize import rescale_image
 
@@ -115,3 +118,18 @@ def run_batch_prediction(
                                    kernel_shape=kernel_shape, kernel_buffer=kernel_buffer)
         written.append(out_path)
     return written
+
+
+def get_img_bounds(image_shape, mixer: MixerInfo, dst_crs=None):
+    """[[south, west], [north, east]] bounds of a reassembled prediction
+    (utils/prediction_tools.py:560-600). With ``dst_crs`` (e.g.
+    ``"EPSG:4326"`` for folium, the reference's transform branch at
+    :584-597) bounds are reprojected from the mixer CRS via the
+    self-contained ``geo.crs`` transforms (UTM/web-mercator/lon-lat)."""
+    h, w = image_shape[:2]
+    left, bottom, right, top = array_bounds(h, w, mixer.affine)
+    if dst_crs is not None:
+        left, bottom, right, top = transform_bounds(
+            left, bottom, right, top, mixer.crs, dst_crs
+        )
+    return [[bottom, left], [top, right]]

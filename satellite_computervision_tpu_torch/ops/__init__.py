@@ -1,5 +1,6 @@
 """Image math on tensors (channels last): normalization, augmentation with
-explicit draws, class handling."""
+explicit draws, class handling, derived bands (``bands``) and densities
+(``stats``)."""
 
 from satellite_computervision_tpu_torch.ops.augment import (
     apply_morph,
@@ -8,6 +9,7 @@ from satellite_computervision_tpu_torch.ops.augment import (
     draw_color_params,
     draw_morph_params,
 )
+from satellite_computervision_tpu_torch.ops.bands import calc_ndvi
 from satellite_computervision_tpu_torch.ops.classes import merge_classes, one_hot
 from satellite_computervision_tpu_torch.ops.normalize import (
     normalize_image,
@@ -26,4 +28,5 @@ __all__ = [
     "apply_morph",
     "merge_classes",
     "one_hot",
+    "calc_ndvi",
 ]

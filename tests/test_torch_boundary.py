@@ -12,8 +12,11 @@ import pytest
 import torch
 
 import satellite_computervision_tpu_torch as port
+from satellite_computervision_tpu_torch import change_detection_end_to_end as change_twin
+from satellite_computervision_tpu_torch import multistate_sweep as sweep_twin
 from satellite_computervision_tpu_torch import predict as cli
 from satellite_computervision_tpu_torch._device import resolve_device
+from satellite_computervision_tpu_torch.cloud import compositing, pc
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 from satellite_computervision_tpu_torch.inference.batch import run_batch_prediction
 
@@ -99,10 +102,33 @@ def test_batch_prediction_defaults_to_cuda(no_cuda, tmp_path):
         run_batch_prediction(str(tmp_path), lambda x: x, ["B2"], str(tmp_path / "out"), "p")
 
 
+@pytest.mark.parametrize("twin", [change_twin, sweep_twin], ids=["change", "multistate"])
+def test_twins_default_to_cuda(no_cuda, twin):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        twin.main([])
+
+
+def test_compositing_defaults_to_cuda(no_cuda):
+    stack = np.ones((2, 4, 4, 3), np.float32)
+    items = [{"datetime": "2021-06-01", "bands": {"B02": np.ones((4, 4), np.float32)}}]
+    for call in (lambda: compositing.median_composite(stack),
+                 lambda: compositing.normalize_composite(stack[0]),
+                 lambda: compositing.composite_stack(stack),
+                 lambda: compositing.composite_items(items, ["B02"]),
+                 lambda: compositing.change_pair_composite(items, items, ["B02"]),
+                 lambda: pc.predict_scene(stack[0], lambda c: c)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert compositing.median_composite(stack, device="cpu").device.type == "cpu"
+
+
 def test_new_modules_are_covered():
     for name in ("inference.staging", "inference.batch", "inference.mixer",
                  "inference.writers", "train.flax_msgpack", "models.siamese",
                  "data.chip_generators", "models.deeplab", "inference.tune",
                  "train.evaluate", "evaluate", "models.convlstm", "models.acnn",
-                 "models.hybrid", "ops.harmonics"):
+                 "models.hybrid", "ops.harmonics", "cloud", "cloud.masking",
+                 "cloud.compositing", "cloud.calibration", "cloud.pc", "cloud.ee",
+                 "cloud.blob", "geo.crs", "geo.transforms", "geo.assembly", "ops.bands",
+                 "ops.stats", "change_detection_end_to_end", "multistate_sweep"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES

@@ -1,7 +1,8 @@
 """chip_smoke.py's serving phases (swath, sweep, whole, patches), its
 change-detection phases (change_train, change), its parking phases
-(parking_train, parking) and its timeseries and landcover training phases
-(timeseries_train, landcover_train) run end to end on the CPU at a tiny
+(parking_train, parking), its timeseries and landcover training phases
+(timeseries_train, landcover_train) and its acquisition phases (acquire,
+calibrate) run end to end on the CPU at a tiny
 size with narrow models, so the smoke run's control flow and checks are
 exercised before it reaches a card. On the
 CPU ``hann_stitch`` runs its plain version, whose calls are counted here
@@ -19,7 +20,7 @@ from satellite_computervision_tpu_torch import evaluate, predict
 from satellite_computervision_tpu_torch.inference import tiles
 from satellite_computervision_tpu_torch.kernels import preprocess as pre
 from satellite_computervision_tpu_torch.kernels import stitch
-from satellite_computervision_tpu_torch.models import UNet
+from satellite_computervision_tpu_torch.models import SiameseUNet, UNet
 from satellite_computervision_tpu_torch.train import zoo
 from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
 from satellite_computervision_tpu_torch.train.config import CONFIGS
@@ -187,3 +188,29 @@ def test_landcover_train_phase_on_cpu(smoke, monkeypatch):
     for name in steps:
         assert fields[name]["f32_loss_rel_err"] == 0.0
         assert fields[name]["f32_grad_max_abs_err_over_max_grad"] == 0.0
+
+
+def test_acquire_and_calibrate_phases_on_cpu(smoke):
+    """acquire: 2 + 2 raw items of 64² (the checked crop 32²) through the
+    masks and composites, then a Siamese U-Net (filters 4/8) at k16 + b8
+    over the pair, one stitch; calibrate: six 48² x 6 state scenes served
+    with the smoke's U-Net, one stitch each."""
+    cs, ckpt, work = smoke
+    model = SiameseUNet(4, filters=(4, 8), factors=(2, 2)).eval()
+    cs.randomize_(model, torch.Generator().manual_seed(1))
+    change_ckpt = str(pathlib.Path(work) / "change_ckpt")
+    save_checkpoint(change_ckpt, model, {})
+    fields, launches = cs.acquire_phase(torch, predict, stitch, pre, change_ckpt, work, 64, 2,
+                                        32, GEOMETRY, device="cpu")
+    assert launches == {"hann_stitch": 1, "fused_preprocess": 0}
+    assert fields["pair_shape"] == [64, 64, 8] and fields["chips"] == 16
+    assert 0.0 < fields["masked_share"] < 1.0 and fields["stitch_max_abs_err"] == 0.0
+    assert min(fields["crop_pixels_raw_score_below_0"]) > 0
+    assert min(fields["crop_pixels_nan_index"]) > 0
+    for counts in (c["valid_counts"] for c in fields["composite"].values()):
+        assert len(counts) == 3 and min(counts) > 0  # 0, 1 and 2 valid dates
+    assert set(fields["seconds"]) == {"synthesis", "masks", "composite", "predict", "write"}
+    fields, launches = cs.calibrate_phase(torch, predict, stitch, pre, ckpt, (48, 48, 6),
+                                          GEOMETRY, device="cpu")
+    assert launches == {"hann_stitch": 6, "fused_preprocess": 0}
+    assert list(fields["report"]) == ["DE", "MD", "PA", "NY", "VA", "WV"]

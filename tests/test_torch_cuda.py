@@ -361,3 +361,67 @@ def test_deeplab_forward_on_card_matches_cpu(cuda, side):
         assert got.shape == (2, side, side, 1)
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * max(want.abs().max().item(), 1.0))
+
+
+def _raw_items(seed, n, side=256):
+    """Raw L1C DN bands (masking names) with clouds, a dark vegetated
+    block, a B3 = B11 = 0 stripe and QA60 bits 10/11."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        bands = {b: rng.uniform(300.0, 3000.0, (side, side)).astype(np.float32)
+                 for b in ("B1", "B2", "B3", "B4", "B8", "B10", "B11", "B12")}
+        y, x = rng.integers(0, side // 2, 2)
+        for b in bands:
+            bands[b][y : y + side // 4, x : x + side // 4] = 5000.0
+        bands["B2"][: side // 8, : side // 4] = 300.0
+        bands["B3"][:, 7:9] = bands["B11"][:, 7:9] = 0.0
+        bands["QA60"] = (rng.integers(0, 4, (side, side)) * 1024).astype(np.float32)
+        out.append(bands)
+    return out
+
+
+def test_masks_on_card_equal_cpu(cuda):
+    """Through ``cloud._exact`` (true division by a 0-dim tensor, the
+    square root in float64, explicit band sums) the card's masks, uint8
+    scores and float scores are bit-equal to the CPU's."""
+    from satellite_computervision_tpu_torch.cloud import masking
+
+    for bands in _raw_items(0, 3):
+        host = {k: torch.from_numpy(v) for k, v in bands.items()}
+        card = {k: v.to(cuda) for k, v in host.items()}
+        for fn in (masking.sentinel_cloud_score, masking.water_score, masking.raw_cloud_score):
+            got, want = fn(card).cpu(), fn(host)
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)), fn.__name__
+        keep = masking.combined_mask(card) & masking.basic_qa_mask(card["QA60"])
+        want = masking.combined_mask(host) & masking.basic_qa_mask(host["QA60"])
+        assert keep.device.type == "cuda" and torch.equal(keep.cpu(), want)
+        assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.parametrize("t", [2, 5, 6])
+def test_median_and_normalize_on_card_equal_cpu(cuda, t):
+    from satellite_computervision_tpu_torch.cloud import _exact, compositing
+
+    rng = np.random.default_rng(t)
+    stack = rng.uniform(0.0, 3000.0, (t, 96, 80, 4)).astype(np.float32)
+    stack[rng.uniform(size=stack.shape) < 0.3] = np.nan
+    stack[:, 0, 0] = np.nan  # all masked
+    want = compositing.median_composite(stack, device="cpu")
+    for band_elements in (compositing._MEDIAN_BAND_ELEMENTS, t * 80 * 4 * 7):
+        compositing._MEDIAN_BAND_ELEMENTS, saved = band_elements, compositing._MEDIAN_BAND_ELEMENTS
+        try:
+            got = compositing.median_composite(torch.from_numpy(stack).to(cuda), device="cuda")
+        finally:
+            compositing._MEDIAN_BAND_ELEMENTS = saved
+        assert got.device.type == "cuda"
+        assert torch.equal(torch.isnan(got.cpu()), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(want))
+    norm = compositing.normalize_composite(got, device="cuda").cpu()
+    want_norm = compositing.normalize_composite(want, device="cpu")
+    assert torch.equal(torch.isnan(norm), torch.isnan(want_norm))
+    assert torch.equal(torch.nan_to_num(norm), torch.nan_to_num(want_norm))
+    x = torch.from_numpy(rng.uniform(0.0, 9.0, 1 << 20).astype(np.float32))
+    assert torch.equal(_exact.sqrt(x.to(cuda)).cpu(), _exact.sqrt(x))
+    assert torch.equal(_exact.div(x.to(cuda), 0.15).cpu(), _exact.div(x, 0.15))
