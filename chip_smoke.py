@@ -144,7 +144,32 @@ line):
    (k512 + b128, batch 16, hann, uint8 out; one ``hann_stitch`` per scene)
    and a confusion report per state; host seconds of calibration against
    the seconds of serving.
-16. ``profile``: one warm scene, three warm train steps, five warm
+16. ``parallel``: parallel training and serving in a one-rank process
+   group (NCCL; the card is one GPU), opened at the start of the phase and
+   destroyed at its end. ``dp_train``: the full-width solar U-Net (batch
+   64 x 256², bf16 autocast) on the ``train`` phase's TFRecords through the
+   CUDA ``fused_preprocess`` and 6 steps of ``make_parallel_train_step``
+   (DDP, global-batch BatchNorm), and 6 of the plain ``make_train_step``
+   from the same weights on the same batches; one float32 step of each
+   held against the other (loss within 1e-4 relative, gradients within
+   1e-3 x max|grad|); warm step times, busy shares, peak memory.
+   ``remat``: ``train --config parking --model unet --remat --orbax``
+   through the CLI on the ``parking_train`` phase's NAIP TFRecords (512² x
+   3, batch 16, bf16), its ``torch.distributed.checkpoint`` restored into
+   a fresh model bit-equal; then 2 steps with remat and 2 without from the
+   same weights (losses within 1e-4 relative, BatchNorm buffers within
+   1e-6; cuDNN deterministic), peak memory and step time of each.
+   ``retrain``: ``train/retrain.py`` from the ``train`` checkpoint with
+   ``freeze_to="head"``, the best metric seeded from an eval, 3 steps: the
+   head moves, every other parameter bit-unchanged. ``spatial``:
+   ``make_spatial_inference(blend="hann")`` with the ``train`` checkpoint
+   (folded BN, bf16, k512 + b128, batch 16) on the slice scene and, with
+   ``max_rows=2688``, on the swath, against the engine's ``predict_scene``
+   within 1e-2, and a float32 case within 1e-3; one ``hann_stitch`` launch
+   per band, and the first band's stitch with its row weights bit-equal to
+   the plain version. ``sharded_engine``: ``cloud.pc.predict_scene(mesh=
+   ...)`` on the slice scene, bit-equal to the unsharded engine.
+17. ``profile``: one warm scene, three warm train steps, five warm
    ``make_preprocess_fn`` calls, three warm change train steps, one warm
    change pair, one warm parking scene and three warm DeepLab train steps
    under ``torch.profiler``: device time by kernel, host time by op and
@@ -2155,6 +2180,418 @@ def calibrate_phase(torch, predict, stitch, pre, ckpt, shape, geometry, seed=SEE
                 serve_mpix_per_s=mpix / serve_s, launches=launches, report=report), launches
 
 
+def _state_equal(torch, a, b):
+    """Every tensor of two ``state_dict``s bit-equal (same keys)."""
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _grads(torch, model):
+    from satellite_computervision_tpu_torch.train.checkpoint import unwrap
+
+    return {n: p.grad.detach().float().clone() for n, p in unwrap(model).named_parameters()}
+
+
+def _max_rel(a, b):
+    """max |a - b| over max |b| of two dicts of tensors (same keys)."""
+    scale = max(v.abs().max().item() for v in b.values())
+    return max((a[k] - v).abs().max().item() for k, v in b.items()) / scale
+
+
+def dp_train_part(torch, pre, stitch, mesh, train_files, cfg, steps, device, seed=SEED):
+    """The data-parallel solar step at ``cfg``'s full width: TFRecord
+    batches (one pass, cycled) through the fused preprocess (``axes=(0,
+    1)``) and
+    ``make_parallel_train_step`` (DDP, global-batch BatchNorm), ``steps``
+    steps; the plain ``make_train_step`` on the same batches from the same
+    weights beside it; one float32 step of each held against the other
+    (loss within 1e-4 relative, gradients within 1e-3 x max|grad|).
+    Returns (fields, the counts of the DP path, its batches)."""
+    from satellite_computervision_tpu_torch.data.pipeline import (
+        get_eval_dataset,
+        make_preprocess_fn,
+    )
+    from satellite_computervision_tpu_torch.models.unet import flax_init_
+    from satellite_computervision_tpu_torch.parallel import (
+        make_parallel_train_step,
+        shard_batch,
+        shard_train_state,
+    )
+    from satellite_computervision_tpu_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    family = get_family("unet")
+    k, batch, bands = cfg.kernel_size, cfg.train_batch, list(cfg.bands)
+    init = flax_init_(family.build(cfg, bn_momentum=0.9), torch.Generator().manual_seed(seed + 200))
+    loss_fn, pred_key = family.loss(cfg)
+    bf16 = torch.bfloat16 if device == "cuda" else None
+    preprocess = make_preprocess_fn(bands, cfg.response, axes=(0, 1), device=device)
+    check(preprocess.fused, "axes=(0, 1) must take the fused_preprocess route")
+    draw = torch.Generator().manual_seed(seed + 201)
+    # one pass over the files, its reader thread done before any step is
+    # timed (a repeating reader decodes ahead on the host while the steps
+    # run); the batches cycle, each augmented anew
+    raws = list(get_eval_dataset(train_files, bands + [cfg.response], kernel_size=k,
+                                 batch_size=batch, device=device))
+    raws = [raws[i % len(raws)] for i in range(steps)]
+
+    def build(dp, lr=cfg.learning_rate):
+        model = copy.deepcopy(init).to(device, memory_format=torch.channels_last)
+        state = create_train_state(model, lr)
+        return shard_train_state(state, mesh) if dp else state
+
+    def run(step, state, batches):
+        times, losses = [], []
+        for x, y in batches:
+            sync(device)
+            t = time.perf_counter()
+            losses.append(float(step(state, (x, y))["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+        return times, losses
+
+    # ---- the path, with the counts set to 0 just before and read just after
+    zero_counts(pre, stitch)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    dp_state = build(True)
+    dp_step = make_parallel_train_step(loss_fn, mesh, pred_key=pred_key, compute_dtype=bf16)
+    batches = [preprocess(raw, draw, train=True) for raw in raws]
+    dp_ms, dp_losses = run(dp_step, dp_state, [shard_batch(b, mesh) for b in batches])
+    counts = kernel_counts(pre, stitch)
+    check(counts == {"hann_stitch": 0, "fused_preprocess": steps},
+          f"dp_train: kernel launches {counts}, expected {steps} fused_preprocess")
+    dp_peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    plain_state = build(False)
+    plain_step = make_train_step(loss_fn, pred_key, compute_dtype=bf16)
+    plain_ms, plain_losses = run(plain_step, plain_state, batches)
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    check(all(math.isfinite(v) for v in dp_losses + plain_losses),
+          f"non-finite loss: {dp_losses} {plain_losses}")
+
+    # ---- one float32 step of each from the same weights on the same batch
+    f32 = []
+    for dp in (True, False):
+        state = build(dp)
+        step = (make_parallel_train_step(loss_fn, mesh, pred_key=pred_key) if dp
+                else make_train_step(loss_fn, pred_key))
+        f32.append((float(step(state, batches[0])["loss"]), _grads(torch, state.model)))
+        del state
+    (dp_loss, dp_g), (plain_loss, plain_g) = f32
+    loss_rel = abs(dp_loss - plain_loss) / abs(plain_loss)
+    grad_err = _max_rel(dp_g, plain_g)
+    check(loss_rel <= 1e-4, f"the DP step's f32 loss disagrees with the plain step's: {loss_rel}")
+    check(grad_err <= 1e-3, f"the DP step's f32 gradients disagree: {grad_err}")
+
+    fields = dict(config=cfg.name, chips=[batch, k, k, len(bands)], steps=steps,
+                  dtype="bfloat16 autocast" if bf16 else "float32", launches=counts,
+                  dp_step_ms=dp_ms, plain_step_ms=plain_ms,
+                  dp_step_ms_median_warm=median(dp_ms[1:]),
+                  plain_step_ms_median_warm=median(plain_ms[1:]),
+                  dp_losses=dp_losses, plain_losses=plain_losses,
+                  bf16_first_loss_rel_diff=abs(dp_losses[0] - plain_losses[0]) / abs(plain_losses[0]),
+                  f32_losses=[dp_loss, plain_loss], f32_loss_rel_err=loss_rel,
+                  f32_grad_max_abs_err_over_max_grad=grad_err,
+                  dp_peak_mem_gib=dp_peak, plain_peak_mem_gib=plain_peak)
+    if device == "cuda":
+        for name, step, state in (("dp", dp_step, dp_state), ("plain", plain_step, plain_state)):
+            prof = device_profile(torch, lambda: step(state, batches[0]), calls=3)
+            fields[f"{name}_busy_share"] = prof["device_busy_share"]
+            fields[f"{name}_device_launches_per_step"] = prof["device_launches"] / 3
+            fields[f"{name}_profile_top"] = prof["top"][:6]
+    return fields, counts, batches
+
+
+def remat_part(torch, pre, stitch, work, train_glob, eval_file, cfg, steps, batch, device,
+               extra_flags=(), seed=SEED):
+    """``train --config parking --model unet --remat --orbax`` through the
+    CLI (the full-width U-Net at ``cfg``'s chips), its DCP checkpoint
+    restored into a fresh model bit-equal; then 2 steps with remat and 2
+    without from the same weights on one batch: the losses within 1e-4
+    relative and the BatchNorm buffers within 1e-6, peak memory and step
+    time of each. Returns (fields, the counts of the CLI run)."""
+    from satellite_computervision_tpu_torch.data.pipeline import (
+        get_eval_dataset,
+        make_preprocess_fn,
+    )
+    from satellite_computervision_tpu_torch.models.unet import flax_init_
+    from satellite_computervision_tpu_torch.train import __main__ as train_cli
+    from satellite_computervision_tpu_torch.train.checkpoint import CheckpointManager
+    from satellite_computervision_tpu_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    family = get_family("unet")
+    ckpt = os.path.join(work, "remat_ckpt")
+    zero_counts(pre, stitch)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer, text, cli_s = run_cli(train_cli, [
+        "--config", "parking", "--model", "unet", "--train", train_glob, "--eval", eval_file,
+        "--ckpt", ckpt, "--epochs", "1", "--steps-per-epoch", str(steps), "--batch-size",
+        str(batch), "--remat", "--orbax", *extra_flags])
+    sync(device)
+    counts = kernel_counts(pre, stitch)
+    cli_peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    model = trainer.state.model
+    check(model.remat and "remat True" in text, "the CLI did not build a remat U-Net")
+    check(trainer.state.step == steps, f"{trainer.state.step} steps")
+    files = sorted(os.listdir(os.path.join(ckpt, "best")))
+    check(".metadata" in files and "scv_meta.json" in files and "model.pt" not in files,
+          f"best/ is not a torch.distributed.checkpoint: {files}")
+    fresh = create_train_state(
+        family.build(cfg, bn_momentum=0.9, remat=True).to(device, memory_format=torch.channels_last),
+        cfg.learning_rate)
+    _, meta = CheckpointManager(ckpt, backend="dcp").restore(fresh, "best")
+    restored_equal = _state_equal(torch, model.state_dict(), fresh.model.state_dict())
+    check(restored_equal, "the DCP checkpoint did not restore bit-equal")
+
+    # ---- remat against plain in the library: same weights, same batch
+    loss_fn, pred_key = family.loss(cfg)
+    bands = list(cfg.bands)
+    raw = next(iter(get_eval_dataset([eval_file], bands + [cfg.response],
+                                     kernel_size=cfg.kernel_size, batch_size=batch,
+                                     device=device)))
+    x, y = make_preprocess_fn(bands, cfg.response, axes=cfg.axes, device=device)(raw, train=False)
+    init = flax_init_(family.build(cfg, bn_momentum=0.9), torch.Generator().manual_seed(seed + 210))
+    bf16 = torch.bfloat16 if device == "cuda" else None
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # one algorithm, run to run
+    try:
+        for remat in (True, False):
+            m = family.build(cfg, bn_momentum=0.9, remat=remat)
+            m.load_state_dict(init.state_dict())
+            state = create_train_state(m.to(device, memory_format=torch.channels_last),
+                                       cfg.learning_rate)
+            step = make_train_step(loss_fn, pred_key, compute_dtype=bf16)
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            for _ in range(2):
+                sync(device)
+                t = time.perf_counter()
+                losses.append(float(step(state, (x, y))["loss"]))
+                times.append((time.perf_counter() - t) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+            buffers = {n: b.detach().float().clone() for n, b in state.model.named_buffers()}
+            runs["remat" if remat else "plain"] = (losses, times, peak, buffers)
+            del state, m
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (r_loss, r_ms, r_peak, r_buf), (p_loss, p_ms, p_peak, p_buf) = runs["remat"], runs["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r_loss, p_loss))
+    buf_err = max((r_buf[n] - v).abs().max().item() for n, v in p_buf.items())
+    check(loss_rel <= 1e-4, f"remat loss disagrees with the plain step's: {loss_rel}")
+    check(buf_err <= 1e-6, f"remat BatchNorm buffers disagree with the plain step's: {buf_err}")
+    return dict(config=cfg.name, chips=[batch, cfg.kernel_size, cfg.kernel_size, len(bands)],
+                cli_seconds=cli_s, cli_steps=steps, cli_peak_mem_gib=cli_peak,
+                launches=counts, dcp_files=files, dcp_meta=meta, dcp_restored_bit_equal=True,
+                remat_losses=r_loss, plain_losses=p_loss, loss_max_rel_diff=loss_rel,
+                bn_buffers_max_abs_diff=buf_err, remat_step_ms=r_ms, plain_step_ms=p_ms,
+                remat_peak_mem_gib=r_peak, plain_peak_mem_gib=p_peak), counts
+
+
+def retrain_part(torch, pre, stitch, train_ckpt, eval_file, batch_xy, cfg, steps, device,
+                 seed=SEED):
+    """``retrain`` from the solar training checkpoint with
+    ``freeze_to="head"``: the best metric seeded from an eval (through the
+    fused preprocess), ``steps`` steps, the head moved and every other
+    parameter bit-unchanged. Returns (fields, counts)."""
+    from satellite_computervision_tpu_torch.data.pipeline import (
+        get_eval_dataset,
+        make_preprocess_fn,
+    )
+    from satellite_computervision_tpu_torch.models.unet import flax_init_
+    from satellite_computervision_tpu_torch.train.checkpoint import load_checkpoint
+    from satellite_computervision_tpu_torch.train.retrain import retrain
+    from satellite_computervision_tpu_torch.train.trainer import create_train_state
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    loss_fn, pred_key = get_family("unet").loss(cfg)
+    model, _ = load_checkpoint(train_ckpt)
+    # other weights than the checkpoint's: the restore must bring them
+    model = flax_init_(model.train(), torch.Generator().manual_seed(seed + 220))
+    model = model.to(device, memory_format=torch.channels_last)
+    bands = list(cfg.bands)
+    preprocess = make_preprocess_fn(bands, cfg.response, axes=(0, 1), device=device)
+    zero_counts(pre, stitch)
+    evals = [preprocess(raw, train=False) for raw in get_eval_dataset(
+        [eval_file], bands + [cfg.response], kernel_size=cfg.kernel_size,
+        batch_size=cfg.train_batch, device=device)]
+    trainer = retrain(create_train_state(model, cfg.learning_rate), loss_fn,
+                      checkpoint_path=os.path.join(train_ckpt, "best"), eval_iter=evals,
+                      freeze_to="head", pred_key=pred_key, monitor=cfg.monitor,
+                      compute_dtype=torch.bfloat16 if device == "cuda" else None)
+    seeded = trainer.best
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses = [float(trainer.train_step(trainer.state, batch_xy)["loss"]) for _ in range(steps)]
+    sync(device)
+    counts = kernel_counts(pre, stitch)
+    check(counts["fused_preprocess"] == len(evals), f"retrain: kernel launches {counts}")
+    moved = sorted(n for n, p in model.named_parameters() if not torch.equal(p, before[n]))
+    check(moved == ["head.bias", "head.weight"], f"retrain moved {moved}, not the head alone")
+    check(math.isfinite(seeded) and all(math.isfinite(v) for v in losses),
+          f"retrain: best {seeded}, losses {losses}")
+    return dict(freeze_to="head", steps=steps, seeded_best=seeded, monitor=cfg.monitor,
+                losses=losses, moved=moved, frozen_bit_unchanged=len(before) - len(moved),
+                launches=counts), counts
+
+
+def spatial_bands(h, kernel, buffer, max_rows, halo_rows=2):
+    """The bands of ``parallel/spatial.py``'s banded hann run over a scene
+    ``h`` rows tall (one hann_stitch each per rank)."""
+    rows_total = -(-h // kernel)
+    if h <= max_rows:
+        return 1
+    return -(-rows_total // ((max_rows - buffer) // kernel - 2 * halo_rows))
+
+
+def spatial_part(torch, pre, stitch, mesh, train_ckpt, scene, swath, max_rows, geometry,
+                 device):
+    """``make_spatial_inference(blend="hann")`` with the solar training
+    checkpoint (folded BN; bf16 on the card) over ``scene`` and, banded by
+    ``max_rows``, over ``swath``, each against the engine's
+    ``predict_scene`` (within 1e-2 in bf16), and one float32 case (within
+    1e-3); ``hann_stitch`` on the first band's own chips with the row
+    weights bit-equal to its plain version; one launch per band. Returns
+    (fields, counts over the three runs, the engine's scene prediction,
+    the served forward)."""
+    from satellite_computervision_tpu_torch import predict
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+    from satellite_computervision_tpu_torch.parallel import make_spatial_inference
+    from satellite_computervision_tpu_torch.parallel import spatial as spatial_mod
+
+    kernel, buffer, batch = geometry
+    served = predict.load_model(train_ckpt, torch.device(device), fold_bn=True)
+    served32 = predict.load_model(train_ckpt, torch.device("cpu"), fold_bn=True).to(device)
+
+    def fwd(m):
+        return lambda c: m(c)["probs"]
+
+    geo = dict(kernel=kernel, buffer=buffer, batch_size=batch, blend="hann", device=device)
+    recorded = []
+    real = spatial_mod.hann_stitch
+
+    def recording(chips, *args, **kwargs):
+        if not recorded:
+            recorded.append((chips.clone(), args, kwargs))
+        return real(chips, *args, **kwargs)
+
+    cases, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0}
+    want_scene = None
+    for name, model, data, rows, tol in (("scene", served, scene, None, 1e-2),
+                                         ("swath", served, swath, max_rows, 1e-2),
+                                         ("scene_f32", served32, scene, None, 1e-3)):
+        engine = TiledInferenceEngine(fwd(model), max_rows=rows, **geo)
+        want = engine.predict_scene(data)
+        run = make_spatial_inference(fwd(model), mesh, max_rows=rows, **geo)
+        spatial_mod.hann_stitch = recording
+        try:
+            zero_counts(pre, stitch)
+            sync(device)
+            t0 = time.perf_counter()
+            got = run(data)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            launches = kernel_counts(pre, stitch)
+        finally:
+            spatial_mod.hann_stitch = real
+        bands = spatial_bands(data.shape[0], kernel, buffer, rows or data.shape[0])
+        check(launches == {"hann_stitch": bands, "fused_preprocess": 0},
+              f"spatial {name}: kernel launches {launches}, expected {bands} hann_stitch")
+        counts["hann_stitch"] += launches["hann_stitch"]
+        check(tuple(got.shape) == data.shape[:2] + (1,), f"spatial {name}: shape {got.shape}")
+        check(bool(torch.isfinite(got).all()) and 0.0 <= float(got.min()) and
+              float(got.max()) <= 1.0, f"spatial {name}: outputs outside [0, 1]")
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= tol, f"spatial {name} disagrees with the engine: {err} > {tol}")
+        engine_s = median(wall_ms(lambda: engine.predict_scene(data), iters=3, device=device))
+        cases[name] = dict(shape=list(data.shape), max_rows=rows, bands=bands,
+                           launches=launches, max_abs_err_vs_engine=err, tolerance=tol,
+                           seconds=seconds, engine_ms=engine_s,
+                           spatial_ms=median(wall_ms(lambda: run(data), iters=3, device=device)))
+        if name == "scene":
+            want_scene = want
+    # the first band's stitch against its plain version (not counted)
+    chips, args, kwargs = recorded[0]
+    stitch_err = (stitch.hann_stitch(chips, *args, **kwargs)
+                  - stitch.hann_stitch_reference(chips, *args, **kwargs)).abs().max().item()
+    check(stitch_err == 0.0, f"hann_stitch with row weights is not bit-equal: {stitch_err}")
+    return dict(cases=cases, stitch_row_weights_max_abs_err=stitch_err,
+                stitch_shape=list(chips.shape), launches=counts), counts, want_scene, fwd(served)
+
+
+def sharded_engine_part(torch, pre, stitch, mesh, scene, want, fwd, geometry, device):
+    """``cloud.pc.predict_scene(mesh=...)`` over ``scene``: bit-equal to the
+    unsharded engine at world size 1. Returns (fields, counts)."""
+    from satellite_computervision_tpu_torch.cloud import pc
+
+    kernel, buffer, batch = geometry
+    zero_counts(pre, stitch)
+    sync(device)
+    t0 = time.perf_counter()
+    got = pc.predict_scene(scene, fwd, kernel=kernel, buffer=buffer, batch_size=batch,
+                           mesh=mesh, blend="hann", device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts(pre, stitch)
+    check(counts == {"hann_stitch": 1, "fused_preprocess": 0},
+          f"sharded engine: kernel launches {counts}")
+    check(torch.equal(got, want), "the sharded engine is not bit-equal to the engine")
+    return dict(shape=list(scene.shape), seconds=seconds, bit_equal_to_engine=True,
+                launches=counts), counts
+
+
+def parallel_phase(torch, pre, stitch, work, inputs, solar_cfg, parking_cfg, geometry,
+                   dp_steps=6, remat_steps=2, remat_batch=16, retrain_steps=3, extra_flags=(),
+                   device="cuda"):
+    """Parallel training and serving in a one-rank process group (NCCL on
+    the card, gloo on the CPU), opened here and destroyed at the end:
+    ``dp_train``, ``remat``, ``retrain``, ``spatial`` and
+    ``sharded_engine`` (see each part). ``inputs``: the earlier phases'
+    solar TFRecords (``train_files``, ``eval_file``), checkpoint
+    (``train_ckpt``), parking TFRecords (``parking_glob``,
+    ``parking_eval``), ``scene`` and ``swath`` arrays and ``max_rows``.
+    Returns (fields, counts by path)."""
+    import torch.distributed as dist
+
+    from satellite_computervision_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    init = os.path.join(work, "pg_init")
+    if os.path.exists(init):
+        os.remove(init)
+    initialize_distributed(f"file://{init}", device=device, timeout=600)
+    try:
+        mesh = make_mesh()
+        fields = dict(backend=dist.get_backend(), world_size=dist.get_world_size())
+        fields["dp_train"], dp_counts, batches = dp_train_part(
+            torch, pre, stitch, mesh, inputs["train_files"], solar_cfg, dp_steps, device)
+        fields["remat"], remat_counts = remat_part(
+            torch, pre, stitch, work, inputs["parking_glob"], inputs["parking_eval"],
+            parking_cfg, remat_steps, remat_batch, device, extra_flags)
+        fields["retrain"], retrain_counts = retrain_part(
+            torch, pre, stitch, inputs["train_ckpt"], inputs["eval_file"], batches[0],
+            solar_cfg, retrain_steps, device)
+        fields["spatial"], spatial_counts, want, fwd = spatial_part(
+            torch, pre, stitch, mesh, inputs["train_ckpt"], inputs["scene"], inputs["swath"],
+            inputs["max_rows"], geometry, device)
+        fields["sharded_engine"], sharded_counts = sharded_engine_part(
+            torch, pre, stitch, mesh, inputs["scene"], want, fwd, geometry, device)
+    finally:
+        dist.destroy_process_group()
+    counts = {"parallel.dp_train": dp_counts, "parallel.remat": remat_counts,
+              "parallel.retrain": retrain_counts, "parallel.spatial": spatial_counts,
+              "parallel.sharded_engine": sharded_counts}
+    return fields, counts
+
+
 def main():
     import torch
 
@@ -2164,7 +2601,7 @@ def main():
         return 1
     from satellite_computervision_tpu_torch import evaluate as evaluate_cli
     from satellite_computervision_tpu_torch import native, predict
-    from satellite_computervision_tpu_torch.geo import read_geotiff
+    from satellite_computervision_tpu_torch.geo import GeoTiffScene, read_geotiff
     from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
     from satellite_computervision_tpu_torch.kernels import _build, stitch
     from satellite_computervision_tpu_torch.kernels import preprocess as pre
@@ -2394,6 +2831,22 @@ def main():
     new_paths = {"timeseries_train": ts_counts, "landcover_train": lc_counts}
     serving_launches.update({p: c["hann_stitch"] for p, c in new_paths.items()})
     new_paths.update(acquire=acquire_launches, calibrate=calibrate_launches)
+
+    # ---- parallel training and serving in a one-rank NCCL group: the
+    # data-parallel solar step, remat through the CLI, retrain, the
+    # spatially sharded hann engine and pc.predict_scene(mesh=...)
+    torch.cuda.empty_cache()
+    parallel, parallel_counts = parallel_phase(torch, pre, stitch, work, dict(
+        train_files=sorted(glob.glob(os.path.join(work, "tfrecords", "train-*.tfrecord.gz"))),
+        eval_file=os.path.join(work, "tfrecords", "eval-0.tfrecord.gz"),
+        train_ckpt=os.path.join(work, "train_ckpt"),
+        parking_glob=os.path.join(work, "parking_tfrecords", "train-*"),
+        parking_eval=parking_eval, scene=scene,
+        swath=np.asarray(GeoTiffScene(os.path.join(work, "swath.tif"))),
+        max_rows=SWATH_MAX_ROWS), SOLAR_CONFIG, PARKING_CONFIG, (kernel, buffer, batch))
+    emit("parallel", **parallel)
+    serving_launches.update({p: c["hann_stitch"] for p, c in parallel_counts.items()})
+    new_paths.update(parallel_counts)
     train_by_path = {"train": train_launches["fused_preprocess"],
                      **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
 

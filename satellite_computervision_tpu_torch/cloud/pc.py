@@ -232,23 +232,33 @@ def predict_scene(
 ) -> torch.Tensor:
     """Full-scene inference from an in-memory composite (an array, or a
     tensor already on ``device``) — the run_local replacement
-    (utils/pc_tools.py:620-729): the port's device-resident tiled engine.
-    Extra keyword arguments pass through to the engine (e.g.
-    ``blend="hann"`` or ``tile_mode="whole"``). Returns the (H, W, C_out)
-    prediction on ``device``.
-
-    ``mesh`` (the JAX package's sharded engine) is not ported yet: it
-    raises, rather than running on one device.
+    (utils/pc_tools.py:620-729): the port's device-resident tiled engine,
+    optionally sharded over a mesh (``parallel.make_mesh``) instead of Dask
+    workers: every rank of the mesh calls this on the same scene, forwards
+    its share of each chip batch and blends the gathered predictions
+    (``parallel.ShardedTiledInference``). Extra keyword arguments pass
+    through to the engine (e.g. ``blend="hann"``, or ``tile_mode="whole"``
+    without a mesh). Returns the (H, W, C_out) prediction on ``device``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "predict_scene(mesh=...) needs the sharded engine, which is not "
-            "ported yet (ROADMAP: parallelism, parallel/)"
+        from satellite_computervision_tpu_torch.parallel import ShardedTiledInference
+
+        if engine_kwargs.get("tile_mode") == "whole":
+            raise ValueError(
+                "tile_mode='whole' shards per-chip batches of 1 and cannot "
+                "run under ShardedTiledInference; use "
+                "parallel.spatial.make_spatial_inference(tile_mode='whole') "
+                "for multi-device whole-band inference"
+            )
+        engine = ShardedTiledInference(
+            predict_fn, mesh, kernel=kernel, buffer=buffer, batch_size=batch_size,
+            device=device, **engine_kwargs,
         )
-    engine = TiledInferenceEngine(
-        predict_fn, kernel=kernel, buffer=buffer, batch_size=batch_size,
-        device=device, **engine_kwargs,
-    )
+    else:
+        engine = TiledInferenceEngine(
+            predict_fn, kernel=kernel, buffer=buffer, batch_size=batch_size,
+            device=device, **engine_kwargs,
+        )
     return engine.predict_scene(scene)
 
 

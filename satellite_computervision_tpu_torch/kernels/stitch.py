@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -77,13 +78,23 @@ def _check(chips: torch.Tensor, kernel: int, rows: int, cols: int) -> int:
     return side
 
 
+def _check_row_weights(row_weights: torch.Tensor, kernel: int, rows: int, device) -> None:
+    if row_weights.shape != ((rows + 1) * kernel,) or row_weights.dtype != torch.float32:
+        raise ValueError("row_weights must be float32 of shape ((rows+1)*kernel,)")
+    if row_weights.device != device:
+        raise ValueError(f"row_weights on {row_weights.device}, chips on {device}")
+
+
 def hann_stitch_reference(chips: torch.Tensor, kernel: int, rows: int, cols: int,
-                          apply_window: bool = False) -> torch.Tensor:
+                          apply_window: bool = False,
+                          row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: with ``apply_window`` the chips are first
     multiplied by :func:`hann_window_2d`; each weighted chip, padded to a
     (2k, 2k) block, splits into four (k, k) quadrants that land on the
     kernel grid; the blend is 4 shifted adds of reshape-stitched quadrant
-    grids, times the constant inverse weight canvas. Runs on any device."""
+    grids, times the inverse weight canvas ``1 / max(wy * wx, 1e-8)``
+    (``wy`` the grid's own row sums, or ``row_weights``). Runs on any
+    device."""
     side = _check(chips, kernel, rows, cols)
     k = kernel
     c_out = chips.shape[-1]
@@ -107,7 +118,13 @@ def hann_stitch_reference(chips: torch.Tensor, kernel: int, rows: int, cols: int
                 (0, 0, b * k, canvas_w - cols * k - b * k,
                  a * k, canvas_h - rows * k - a * k),
             )
-    inv_w = torch.from_numpy(hann_inverse_weights(rows, cols, k, side))
+    if row_weights is None:
+        inv_w = torch.from_numpy(hann_inverse_weights(rows, cols, k, side))
+    else:
+        _check_row_weights(row_weights, k, rows, chips.device)
+        wy = row_weights.detach().cpu().numpy()
+        wx = _axis_weight_sum(cols, k, side)
+        inv_w = torch.from_numpy(1.0 / np.maximum(wy[:, None] * wx[None, :], 1e-8))
     return acc * inv_w.to(chips.device)[..., None]
 
 
@@ -140,7 +157,8 @@ def _entry():
 
 
 def hann_stitch(chips: torch.Tensor, kernel: int, rows: int, cols: int,
-                apply_window: bool = False) -> torch.Tensor:
+                apply_window: bool = False,
+                row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Assemble chips into the normalized blended canvas.
 
     ``chips``: (rows*cols, side, side, c_out) float32, contiguous, chip
@@ -149,12 +167,17 @@ def hann_stitch(chips: torch.Tensor, kernel: int, rows: int, cols: int,
     kernel then weights each pixel by ``w1[sy] * w1[sx]`` itself). Returns
     (canvas_h, canvas_w, c_out) float32 with canvas_h = (rows+1)*k.
 
+    ``row_weights`` ((rows+1)*k float32 on the chips' device) replaces the
+    grid's own row sum of windows in the normalizer: a band of a larger
+    grid (``parallel/spatial.py``) normalizes by the whole grid's sums,
+    mapped onto its canvas rows.
+
     CUDA tensors go through the hand-written kernel (each launch adds one
     to ``hann_stitch.launches``); CPU tensors through
     :func:`hann_stitch_reference`."""
     side = _check(chips, kernel, rows, cols)
     if chips.device.type == "cpu":
-        return hann_stitch_reference(chips, kernel, rows, cols, apply_window)
+        return hann_stitch_reference(chips, kernel, rows, cols, apply_window, row_weights)
     if chips.device.type != "cuda":
         raise ValueError(f"hann_stitch: unsupported device {chips.device}")
     if chips.dtype != torch.float32:
@@ -164,6 +187,9 @@ def hann_stitch(chips: torch.Tensor, kernel: int, rows: int, cols: int,
     fn = _entry()
     c_out = chips.shape[-1]
     wy, wx = _device_axis_weights(rows, cols, kernel, side, chips.device)
+    if row_weights is not None:
+        _check_row_weights(row_weights, kernel, rows, chips.device)
+        wy = row_weights.contiguous()
     w1 = _device_window_1d(side, chips.device)
     out = torch.empty(((rows + 1) * kernel, (cols + 1) * kernel, c_out),
                       dtype=torch.float32, device=chips.device)

@@ -14,6 +14,14 @@ parameters' dtype (bf16 when serving; training in bf16 runs float32
 parameters under ``torch.autocast``), and the logits are cast to float32
 before the head, as the JAX model does.
 
+``remat=True`` runs each encoder, centre and decoder block through
+``torch.utils.checkpoint`` (flax ``nn.remat`` per block in the JAX model):
+a training forward keeps only the blocks' inputs and recomputes the rest
+during backward. The module tree, so the ``state_dict``, is the same with
+and without it. The recompute runs train-mode BatchNorm a second time; it
+normalizes by the batch as the forward did, and the running statistics
+are put back as the forward left them (:func:`_remat`).
+
 A new ``UNet`` starts from flax's default initialization
 (:func:`flax_init_`): truncated LeCun-normal kernels, zero biases (the
 head's bias ``output_bias`` when given), BatchNorm scale 1 and bias 0.
@@ -26,6 +34,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from satellite_computervision_tpu_torch.models.blocks import (
     BN_MOMENTUM,
@@ -65,6 +74,36 @@ def flax_init_(model: nn.Module, generator: Optional[torch.Generator] = None,
     return model
 
 
+def _remat(block: nn.Module, *args):
+    """``block(*args)`` under activation checkpointing (non-reentrant;
+    dropout masks replayed from the saved RNG state). The first call of
+    ``run`` is the forward; any later one is the recompute in backward,
+    after which the BatchNorm buffers (running mean and variance,
+    ``num_batches_tracked``) are restored: one step moves them once, as a
+    plain step and flax's functional ``batch_stats`` do."""
+    buffers = [b for m in block.modules() if isinstance(m, nn.BatchNorm2d)
+               for b in (m.running_mean, m.running_var, m.num_batches_tracked)]
+    calls = []
+
+    def run(*a):
+        if not calls:
+            calls.append(True)
+            return block(*a)
+        saved = [b.clone() for b in buffers]
+        try:
+            return block(*a)
+        finally:
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=True)
+
+
+def _plain(block: nn.Module, *args):
+    return block(*args)
+
+
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/2, W/2, 4C) with the JAX package's channel
     order ``(dy*2 + dx)*C + c`` (``F.pixel_unshuffle`` orders channels
@@ -94,6 +133,7 @@ class UNet(nn.Module):
         bn_momentum: float = BN_MOMENTUM,
         dropout: Optional[float] = None,
         output_bias: Optional[float] = None,
+        remat: bool = False,
     ):
         super().__init__()
         if len(filters) != len(factors):
@@ -105,8 +145,9 @@ class UNet(nn.Module):
             factors=tuple(factors), head=head, threshold=threshold,
             convs_per_block=convs_per_block, space_to_depth=space_to_depth,
             fold_bn=fold_bn, bn_momentum=bn_momentum, dropout=dropout,
-            output_bias=output_bias,
+            output_bias=output_bias, remat=remat,
         )
+        self.remat = remat
         self.head_kind = head
         self.threshold = threshold
         self.space_to_depth = space_to_depth
@@ -140,14 +181,15 @@ class UNet(nn.Module):
         if self.space_to_depth:
             x = space_to_depth(x)
         x = x.permute(0, 3, 1, 2)
+        call = _remat if self.remat and self.training and torch.is_grad_enabled() else _plain
 
         skips = []
         for i in range(self.levels):
-            x, skip = getattr(self, f"EncoderBlock_{i}")(x)
+            x, skip = call(getattr(self, f"EncoderBlock_{i}"), x)
             skips.append(skip)
-        x = self.ConvBlock_0(x)
+        x = call(self.ConvBlock_0, x)
         for i, skip in enumerate(reversed(skips)):
-            x = getattr(self, f"DecoderBlock_{i}")(x, skip)
+            x = call(getattr(self, f"DecoderBlock_{i}"), x, skip)
         if self.space_to_depth:
             x = self.stem_upsample(x)
             if self.stem_upsample_bn is not None:

@@ -56,12 +56,15 @@ stream), one epoch being the dataset's length unless
 The model is first run on the family's example inputs on the meta device,
 as the JAX CLI's ``init`` runs them: a model that cannot take its
 preset's shapes (the hybrid at the landcover and wetland presets' 256²)
-fails there, before any data is read. ``--bn-momentum`` and ``--s2d``
-apply to the unet family only. On CUDA the forward runs in bfloat16
-under autocast (``--no-bf16`` for float32); on the CPU (``--device cpu``)
-in float32.
-
-Not ported yet: ``--orbax`` and ``--remat``.
+fails there, before any data is read. ``--bn-momentum``, ``--s2d`` and
+``--remat`` (activation checkpointing per U-Net block) apply to the unet
+family only. On CUDA the forward runs in bfloat16 under autocast
+(``--no-bf16`` for float32); on the CPU (``--device cpu``) in float32.
+``--orbax`` keeps the flag name of the JAX CLI; here it writes the
+checkpoints in the ``torch.distributed.checkpoint`` format
+(``CheckpointManager(backend="dcp")``: ``<ckpt>/best/`` holds the sharded
+model and optimizer state and ``scv_meta.json``, no ``model.pt``, so the
+``predict`` CLI does not serve it).
 """
 
 from __future__ import annotations
@@ -142,6 +145,12 @@ def main(argv=None):
     ap.add_argument("--torch-weights",
                     help="deeplab: warm-start the ResNet backbone from a local torchvision "
                     "state_dict .pth (convs and BatchNorm running statistics)")
+    ap.add_argument("--remat", action="store_true",
+                    help="unet: recompute each block's activations in backward "
+                    "(torch.utils.checkpoint) to train larger batches or chips")
+    ap.add_argument("--orbax", action="store_true",
+                    help="checkpoint in the torch.distributed.checkpoint format "
+                    "(sharded-state capable) instead of model.pt; the JAX CLI's flag name")
     ap.add_argument("--resume", action="store_true",
                     help="restore <ckpt>/best and seed the best metric from an eval")
     ap.add_argument("--seed", type=int, default=0)
@@ -165,7 +174,7 @@ def main(argv=None):
     # ---- model
     kw = {}
     if args.model == "unet":
-        kw["bn_momentum"] = args.bn_momentum
+        kw.update(bn_momentum=args.bn_momentum, remat=args.remat)
         if args.s2d is not None:
             kw["space_to_depth"] = args.s2d
     # built on the meta device and allocated once: flax_init_ draws every
@@ -189,11 +198,13 @@ def main(argv=None):
         create_train_state(model, lr), loss_fn, pred_key=pred_key,
         num_classes=max(cfg.num_classes, 2), monitor=cfg.monitor,
         mode="min" if cfg.monitor == "loss" else "max",
-        checkpoint_manager=CheckpointManager(args.ckpt), compute_dtype=compute_dtype,
+        checkpoint_manager=CheckpointManager(args.ckpt, backend="dcp" if args.orbax else "pt"),
+        compute_dtype=compute_dtype,
     )
     print(f"training {cfg.name} ({args.model}) on {device}: batch {batch}, "
           f"{'bf16 autocast' if compute_dtype else 'float32'}, "
-          f"space-to-depth {getattr(model, 'space_to_depth', False)}")
+          f"space-to-depth {getattr(model, 'space_to_depth', False)}, "
+          f"remat {getattr(model, 'remat', False)}")
 
     # ---- data
     if args.model in NPY_FAMILIES:

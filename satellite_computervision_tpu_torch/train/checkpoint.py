@@ -17,13 +17,21 @@ The JAX package's msgpack checkpoints (``<dir>/state.msgpack`` from
 (``train/flax_msgpack.py``; no ``msgpack``, ``flax`` or ``jax`` import),
 and :func:`load_flax_weights` puts their ``params``/``batch_stats`` into a
 model of the port with ``models.bridge.flax_to_torch``; ``opt_state`` is decoded
-but not used. Orbax checkpoints are not ported.
+but not used; :func:`load_remote_weights` fetches such a blob by URL.
+
+``CheckpointManager(root, backend="dcp")`` is the sharded-state backend
+(the JAX package's orbax one): ``<root>/<which>/`` holds a
+``torch.distributed.checkpoint`` of the model and optimizer state, which
+every rank of a process group writes together, and ``scv_meta.json``
+``{"step", "metrics"}``, which rank 0 writes. It does not read a JAX
+orbax directory: that needs orbax, which imports JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import urllib.request
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -52,6 +60,12 @@ def build_empty(build, *args, **kwargs) -> Model:
         return build(*args, **kwargs)
 
 
+def unwrap(model: torch.nn.Module) -> torch.nn.Module:
+    """The model inside a ``DistributedDataParallel`` wrapper (itself
+    otherwise)."""
+    return getattr(model, "module", model)
+
+
 def arch_of(model: Model) -> str:
     """The ``arch`` name of a model of the port (:data:`ARCHS`)."""
     for name, cls in ARCHS.items():
@@ -72,6 +86,7 @@ def save_checkpoint(path: str, model: Model, meta: Optional[Dict] = None, which:
     file path. The file is written whole, then renamed into place."""
     out = _file(path, which)
     os.makedirs(os.path.dirname(out), exist_ok=True)
+    model = unwrap(model)
     state = {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
              for k, v in model.state_dict().items()}
     blob = {"arch": arch_of(model), "model_kwargs": dict(model.kwargs), "state_dict": state,
@@ -126,32 +141,140 @@ def load_flax_weights(model: Model, tree: Dict[str, Any]) -> Model:
     return model.eval()
 
 
+def _bn_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """``model``'s BatchNorm running statistics as a flax ``batch_stats``
+    tree (``{"mean", "var"}`` at each BatchNorm's module path)."""
+    tree: Dict[str, Any] = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            node = tree
+            for part in name.split("."):
+                node = node.setdefault(part, {})
+            node["mean"] = mod.running_mean.detach().cpu().numpy()
+            node["var"] = mod.running_var.detach().cpu().numpy()
+    return tree
+
+
+def load_remote_weights(url: str, model: Model) -> Model:
+    """Fetch a flax msgpack blob by URL (``https://``, or ``file://``) and
+    load it into ``model`` in place: a state tree with ``params`` (and
+    ``batch_stats``), or a bare ``params`` tree, as the JAX package's
+    ``load_remote_weights`` takes it, which keeps the model's BatchNorm
+    running statistics. Decoded by ``train/flax_msgpack.py`` and bridged by
+    ``models.bridge.flax_to_torch``."""
+    with urllib.request.urlopen(url) as resp:
+        tree = flax_msgpack.restore(resp.read())
+    inner = unwrap(model)
+    if "params" in tree:
+        params, stats = tree["params"], tree.get("batch_stats")
+    else:
+        params, stats = tree, _bn_stats_tree(inner)
+    state = flax_to_torch(params, stats, inner)
+    with torch.no_grad():
+        for key, value in inner.state_dict().items():
+            if not key.endswith("num_batches_tracked"):  # flax keeps no such counter
+                value.copy_(state[key])
+    return model
+
+
+def _dcp_state(state) -> Dict[str, Any]:
+    from torch.distributed.checkpoint.state_dict import get_state_dict
+
+    model_sd, optim_sd = get_state_dict(state.model, state.optimizer)
+    return {"model": model_sd, "optimizer": optim_sd}
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def save_checkpoint_dcp(path: str, state, metrics: Optional[Dict[str, float]] = None,
+                        step: int = 0) -> str:
+    """Write ``state``'s model (a ``DistributedDataParallel`` one too) and
+    optimizer with ``torch.distributed.checkpoint`` to the directory
+    ``path``: every rank of the process group takes part; rank 0 alone
+    writes ``scv_meta.json``. Without a process group it writes alone."""
+    import torch.distributed.checkpoint as dcp
+
+    os.makedirs(path, exist_ok=True)
+    dcp.save(_dcp_state(state), checkpoint_id=path)
+    if _rank() == 0:
+        with open(os.path.join(path, "scv_meta.json"), "w") as f:
+            json.dump({"step": int(step), "metrics": metrics or {}}, f)
+    return path
+
+
+def load_checkpoint_dcp(path: str, state) -> Tuple[Any, Dict]:
+    """Restore a :func:`save_checkpoint_dcp` directory into ``state`` in
+    place (weights, BatchNorm buffers, optimizer state, step) and return
+    ``(state, meta)``. Rank 0 reads the meta and, under a process group of
+    more than one rank, broadcasts it, so ranks without a shared file
+    system restore the same step and metrics."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.state_dict import set_state_dict
+
+    target = _dcp_state(state)
+    dcp.load(target, checkpoint_id=path)
+    set_state_dict(state.model, state.optimizer, model_state_dict=target["model"],
+                   optim_state_dict=target["optimizer"])
+    meta: Dict[str, Any] = {}
+    meta_path = os.path.join(path, "scv_meta.json")
+    if _rank() == 0 and os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        box = [meta]
+        dist.broadcast_object_list(box, src=0)
+        meta = box[0]
+    state.step = int(meta.get("step", 0))
+    return state, meta
+
+
 class CheckpointManager:
     """Keeps the ``best`` and ``latest`` training checkpoints under
-    ``root``."""
+    ``root``: ``backend="pt"`` one ``model.pt`` each (what ``predict`` and
+    ``evaluate`` serve), ``backend="dcp"`` a ``torch.distributed.checkpoint``
+    directory each, written by every rank (:func:`save_checkpoint_dcp`)."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, backend: str = "pt"):
+        if backend not in ("pt", "dcp"):
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.root = root
+        self.backend = backend
         os.makedirs(root, exist_ok=True)
 
     def save(self, state, step: int, metrics: Optional[Dict[str, float]] = None):
         meta = {"step": int(step), "metrics": metrics or {}}
         for which in ("best", "latest"):
-            save_checkpoint(self.root, state.model, meta, which=which,
-                            optimizer=state.optimizer, step=step)
+            if self.backend == "dcp":
+                save_checkpoint_dcp(os.path.join(self.root, which), state, metrics, step)
+            else:
+                save_checkpoint(self.root, state.model, meta, which=which,
+                                optimizer=state.optimizer, step=step)
 
     def restore(self, state, which: str = "best"):
         """Load weights, BN statistics, optimizer state and step of
         ``root/<which>`` into ``state`` (in place, onto its device);
         returns ``(state, meta)``."""
+        if self.backend == "dcp":
+            return load_checkpoint_dcp(os.path.join(self.root, which), state)
         blob = _read(self.root, which)
-        state.model.load_state_dict(blob["state_dict"])
+        unwrap(state.model).load_state_dict(blob["state_dict"])
         if "optimizer" in blob:
             state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob.get("step", blob["meta"].get("step", 0)))
         return state, blob["meta"]
 
     def best_metrics(self) -> Dict[str, float]:
+        if self.backend == "dcp":
+            meta_path = os.path.join(self.root, "best", "scv_meta.json")
+            if not os.path.exists(meta_path):
+                return {}
+            with open(meta_path) as f:
+                return json.load(f).get("metrics", {})
         if not os.path.exists(_file(self.root, "best")):
             return {}
         return _read(self.root, "best")["meta"].get("metrics", {})

@@ -9,7 +9,8 @@ through the plain version of ``hann_stitch``. Composites within rtol 1e-5
 / atol 1e-6; probabilities within atol 1e-5 in eval mode (the same
 network and blend summed in another order). Then both twins
 (``change_detection_end_to_end``, ``multistate_sweep``) at their default
-sizes with ``--device cpu``, and ``predict_scene(mesh=...)`` refused."""
+sizes with ``--device cpu``, and ``predict_scene(mesh=..., tile_mode="whole")``
+refused."""
 
 import numpy as np
 import pytest
@@ -88,9 +89,11 @@ def test_acquire_slice_matches_jax():
 
 def test_predict_scene_refuses_a_mesh():
     scene = np.zeros((64, 64, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # under a mesh, whole mode is refused with the JAX package's message
+    # (the sharded engine itself: tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="whole-band"):
         tpc.predict_scene(scene, lambda c: c[..., :1], kernel=32, buffer=16, mesh=object(),
-                          device="cpu")
+                          tile_mode="whole", device="cpu")
     # engine options pass through; whole mode needs no chips
     out = tpc.predict_scene(scene + 1.0, lambda c: c.mean(-1, keepdim=True), kernel=32,
                             buffer=16, tile_mode="whole", whole_multiple=8, device="cpu")

@@ -19,6 +19,9 @@ from satellite_computervision_tpu_torch._device import resolve_device
 from satellite_computervision_tpu_torch.cloud import compositing, pc
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 from satellite_computervision_tpu_torch.inference.batch import run_batch_prediction
+from satellite_computervision_tpu_torch.parallel import initialize_distributed
+from satellite_computervision_tpu_torch.parallel.spatial import make_spatial_inference
+from satellite_computervision_tpu_torch.train import __main__ as train_cli
 
 ROOT = pathlib.Path(port.__file__).resolve().parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "satellite_computervision_tpu")
@@ -130,5 +133,24 @@ def test_new_modules_are_covered():
                  "models.hybrid", "ops.harmonics", "cloud", "cloud.masking",
                  "cloud.compositing", "cloud.calibration", "cloud.pc", "cloud.ee",
                  "cloud.blob", "geo.crs", "geo.transforms", "geo.assembly", "ops.bands",
-                 "ops.stats", "change_detection_end_to_end", "multistate_sweep"):
+                 "ops.stats", "change_detection_end_to_end", "multistate_sweep", "parallel",
+                 "parallel.mesh", "parallel.data_parallel", "parallel.sharded_inference",
+                 "parallel.spatial", "train.retrain"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES
+
+
+def test_parallel_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """initialize_distributed and the spatial engine raise without CUDA
+    unless the CPU is asked for; the train CLI with its new flags too."""
+    import torch.distributed as dist
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        initialize_distributed(f"file://{tmp_path / 'pg'}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_spatial_inference(lambda c: c, mesh=None, blend="hann")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--config", "solar", "--train", str(tmp_path / "x"), "--remat",
+                        "--orbax"])
+    assert not dist.is_initialized()
+    initialize_distributed(None, device="cpu")  # no coordinator: nothing to join
+    assert not dist.is_initialized()

@@ -214,3 +214,68 @@ def test_acquire_and_calibrate_phases_on_cpu(smoke):
                                           GEOMETRY, device="cpu")
     assert launches == {"hann_stitch": 6, "fused_preprocess": 0}
     assert list(fields["report"]) == ["DE", "MD", "PA", "NY", "VA", "WV"]
+
+
+def test_parallel_phase_on_cpu(smoke, monkeypatch):
+    """parallel, in a one-rank gloo group: dp_train on 2 steps of 4 solar
+    chips of 64² (through the fused preprocess's plain version, counted),
+    remat through the train CLI on 2 parking chips of 64², retrain from the
+    smoke's checkpoint, spatial on a 160 x 96 scene and a 300 x 80 swath
+    banded at 96 rows (k16 + b8: bands of 5 chip rows advancing 1), and the
+    sharded engine."""
+    from satellite_computervision_tpu_torch.data import pipeline
+    from satellite_computervision_tpu_torch.parallel import spatial
+
+    cs, ckpt, work = smoke
+    plain_pre = pipeline.fused_preprocess
+
+    def counted_pre(*args, **kwargs):
+        pre.fused_preprocess.launches += 1
+        return plain_pre(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline, "fused_preprocess", counted_pre)
+    plain_stitch = spatial.hann_stitch
+
+    def counted_stitch(*args, **kwargs):
+        stitch.hann_stitch.launches += 1
+        return plain_stitch(*args, **kwargs)
+
+    monkeypatch.setattr(spatial, "hann_stitch", counted_stitch)
+    _narrow(monkeypatch, unet=dict(filters=(4, 8), factors=(2, 2)))
+    solar = dataclasses.replace(CONFIGS["solar"], kernel_size=64, train_batch=4)
+    parking = dataclasses.replace(CONFIGS["parking"], kernel_size=64, batch_size=2)
+    monkeypatch.setitem(CONFIGS, "parking", parking)
+    root = pathlib.Path(work)
+    (root / "tf").mkdir()
+    (root / "ptf").mkdir()
+    files = [str(root / "tf" / f"train-{i}.tfrecord.gz") for i in range(2)]
+    for i, path in enumerate(files + [str(root / "tf" / "eval-0.tfrecord.gz")]):
+        cs.synthesize_chips(path, 4, list(solar.bands), solar.response, 64, i)
+    for i, name in enumerate(["train-0", "train-1", "eval-0"]):
+        cs.synthesize_chips(str(root / "ptf" / f"{name}.tfrecord.gz"), 2, list(parking.bands),
+                            parking.response, 64, 10 + i)
+    rng = np.random.default_rng(0)
+    inputs = dict(train_files=files, eval_file=str(root / "tf" / "eval-0.tfrecord.gz"),
+                  train_ckpt=ckpt, parking_glob=str(root / "ptf" / "train-*"),
+                  parking_eval=str(root / "ptf" / "eval-0.tfrecord.gz"),
+                  scene=rng.uniform(0, 0.4, (160, 96, 6)).astype(np.float32),
+                  swath=rng.uniform(0, 0.4, (300, 80, 6)).astype(np.float32), max_rows=96)
+    fields, counts = cs.parallel_phase(torch, pre, stitch, work, inputs, solar, parking,
+                                       GEOMETRY, dp_steps=2, remat_batch=2, retrain_steps=2,
+                                       extra_flags=["--device", "cpu"], device="cpu")
+    assert fields["backend"] == "gloo" and fields["world_size"] == 1
+    assert counts["parallel.dp_train"] == {"hann_stitch": 0, "fused_preprocess": 2}
+    assert counts["parallel.remat"] == {"hann_stitch": 0, "fused_preprocess": 0}
+    assert counts["parallel.retrain"] == {"hann_stitch": 0, "fused_preprocess": 1}
+    # one band each for the scene and the float32 case, 19 for the swath
+    assert counts["parallel.spatial"] == {"hann_stitch": 1 + 19 + 1, "fused_preprocess": 0}
+    assert counts["parallel.sharded_engine"] == {"hann_stitch": 1, "fused_preprocess": 0}
+    dp = fields["dp_train"]
+    assert dp["f32_loss_rel_err"] <= 1e-4 and dp["f32_grad_max_abs_err_over_max_grad"] <= 1e-3
+    assert fields["remat"]["dcp_restored_bit_equal"]
+    assert fields["remat"]["loss_max_rel_diff"] == 0.0
+    assert fields["retrain"]["moved"] == ["head.bias", "head.weight"]
+    for case in fields["spatial"]["cases"].values():
+        assert case["max_abs_err_vs_engine"] <= 1e-5
+    assert fields["spatial"]["stitch_row_weights_max_abs_err"] == 0.0
+    assert fields["sharded_engine"]["bit_equal_to_engine"]

@@ -425,3 +425,63 @@ def test_median_and_normalize_on_card_equal_cpu(cuda, t):
     x = torch.from_numpy(rng.uniform(0.0, 9.0, 1 << 20).astype(np.float32))
     assert torch.equal(_exact.sqrt(x.to(cuda)).cpu(), _exact.sqrt(x))
     assert torch.equal(_exact.div(x.to(cuda), 0.15).cpu(), _exact.div(x, 0.15))
+
+
+@pytest.mark.parametrize("k,buf,rows,cols", [
+    (32, 16, 7, 3),      # a band of a small grid
+    (512, 128, 7, 5),    # a solar band: rpd + 2 chip rows of 640² chips
+])
+def test_hann_stitch_kernel_with_row_weights_bit_equal(cuda, k, buf, rows, cols):
+    """A band of a taller grid (parallel/spatial.py): the normalizer's rows
+    come from the caller; bit-equal to the plain version."""
+    side = k + buf
+    rng = np.random.default_rng(rows)
+    chips = torch.from_numpy(
+        rng.normal(size=(rows * cols, side, side, 1)).astype(np.float32)).to(cuda)
+    wy = stitch._axis_weight_sum(rows + 4, k, side)[2 * k : (rows + 3) * k].copy()
+    wy[:k] = 1.0  # rows off the whole grid's canvas
+    row_weights = torch.from_numpy(wy).to(cuda)
+    before = stitch.hann_stitch.launches
+    got = stitch.hann_stitch(chips, k, rows, cols, apply_window=True, row_weights=row_weights)
+    torch.cuda.synchronize()
+    assert stitch.hann_stitch.launches == before + 1
+    want = stitch.hann_stitch_reference(chips, k, rows, cols, apply_window=True,
+                                        row_weights=row_weights)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        stitch.hann_stitch(chips, k, rows, cols, row_weights=row_weights[:-1])
+
+
+def test_global_batchnorm_at_world_one_matches_batchnorm(cuda, tmp_path):
+    """GlobalBatchNorm over a one-rank NCCL group against the plain
+    BatchNorm on the same batch: outputs, input gradients and running
+    statistics (one-pass against cuDNN's variance: rounding)."""
+    import torch.distributed as dist
+
+    from satellite_computervision_tpu_torch.models.blocks import BatchNorm
+    from satellite_computervision_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        use_global_batchnorm,
+    )
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    initialize_distributed(f"file://{tmp_path / 'pg'}", device="cuda", timeout=60)
+    try:
+        group = make_mesh().get_group("data")
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            1.0, 2.0, (8, 16, 24, 24)).astype(np.float32)).to(cuda)
+        plain = BatchNorm(16, eps=1e-3, momentum=0.1).to(cuda).train()
+        glob = use_global_batchnorm(copy.deepcopy(plain), group)
+        results = []
+        for bn in (plain, glob):
+            xs = x.clone().requires_grad_(True)
+            y = bn(xs)
+            (y * torch.arange(16, device=cuda).view(1, -1, 1, 1)).sum().backward()
+            results.append((y.detach(), xs.grad, bn.running_mean, bn.running_var,
+                            bn.num_batches_tracked))
+        for a, b in zip(*results):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
