@@ -169,7 +169,28 @@ line):
    per band, and the first band's stitch with its row weights bit-equal to
    the plain version. ``sharded_engine``: ``cloud.pc.predict_scene(mesh=
    ...)`` on the slice scene, bit-equal to the unsharded engine.
-17. ``profile``: one warm scene, three warm train steps, five warm
+17. ``h5``: the Keras ``.h5`` bridge at full width — a reference-layout
+   solar U-Net (6 bands, filters 32…512, no space-to-depth stem, one conv
+   per block, seeded weights) saved with ``save_checkpoint``, exported to
+   the reference's Keras layout by ``python -m
+   satellite_computervision_tpu_torch.export``, its architecture inferred
+   back and its weights re-imported bit-equal; ``evaluate --ckpt``,
+   ``evaluate --h5 --no-fold`` (equal counts) and ``evaluate --h5``
+   folded (bf16: only pixels whose float32 probability lies within 1e-2
+   of the threshold may change class) on the ``train`` phase's eval
+   records, the head's bias set so that a fifth of them score positive; the weights through ``compat.get_blob_model``
+   (``file://``) served over the slice scene by the hann engine (one
+   ``hann_stitch`` launch, held bit-equal against its plain version) and
+   by ``compat.predict_chips`` (held against the ``ops.chips`` per-chip
+   loop); the Siamese U-Net, ConvLSTM, LSTM autoencoder and hybrid (240²)
+   at their presets' widths out and back, each forward on the card before
+   and after (bit-equal; the ConvLSTM families within 1e-5 x max|out|:
+   Keras stores the forget bias + 1, which costs a rounding). Where the
+   card host has no ``h5py`` (the line says ``h5py: absent``) the same
+   exporters, loaders and ``evaluate.load_h5_model`` take the layers in
+   memory, which is what the file would hold; the file layer is held by
+   the CPU tests.
+18. ``profile``: one warm scene, three warm train steps, five warm
    ``make_preprocess_fn`` calls, three warm change train steps, one warm
    change pair, one warm parking scene and three warm DeepLab train steps
    under ``torch.profiler``: device time by kernel, host time by op and
@@ -180,6 +201,7 @@ Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line, and last
 result. Writes scratch files under ``build/chip_smoke/``.
 """
 
+import contextlib
 import copy
 import glob
 import gzip
@@ -428,7 +450,8 @@ def randomize_(model, gen):
                 fan_in = w[0].numel() if isinstance(mod, torch.nn.Conv2d) else \
                     w.shape[0] * w.shape[2] * w.shape[3]
                 w.copy_(torch.randn(w.shape, generator=gen) * (2.0 / fan_in) ** 0.5)
-                mod.bias.copy_(torch.randn(mod.bias.shape, generator=gen) * 0.01)
+                if mod.bias is not None:  # a ConvLSTM's recurrent conv has none
+                    mod.bias.copy_(torch.randn(mod.bias.shape, generator=gen) * 0.01)
             elif isinstance(mod, torch.nn.BatchNorm2d):
                 n = mod.num_features
                 mod.weight.copy_(0.8 + 0.4 * torch.rand(n, generator=gen))
@@ -2592,6 +2615,311 @@ def parallel_phase(torch, pre, stitch, work, inputs, solar_cfg, parking_cfg, geo
     return fields, counts
 
 
+# the reference-layout solar U-Net of the h5 phase: the reference's
+# widths, no space-to-depth stem, one conv per block (its conv_block quirk)
+H5_UNET = dict(filters=(32, 64, 128, 256, 512), factors=(2, 2, 2, 2, 2), convs_per_block=1)
+# the other .h5 families: (zoo family, preset, exporter / loader suffix)
+H5_FAMILIES = (("siamese", "change", "siamese"), ("convlstm", "timeseries", "lstm"),
+               ("lstm_autoencoder", "timeseries", "lstm_autoencoder"),
+               ("hybrid", "landcover", "hybrid"))
+
+
+def _payload_bytes(layers):
+    return int(sum(a.nbytes for _, weights in layers for _, a in weights))
+
+
+def _forget_quarters(model):
+    """The state_dict keys and slices of the ConvLSTM forget-gate biases,
+    which a Keras round trip stores as b + 1 and reads back as (b + 1) - 1."""
+    out = {}
+    for name, mod in model.named_modules():
+        if name.endswith("cell"):
+            f = mod.features
+            out[f"{name}.input_conv.bias"] = slice(f, 2 * f)
+    return out
+
+
+def eval_inputs(cfg, files, device, batch_size=16):
+    """The eval records' preprocessed chips, batch by batch, as the
+    evaluate CLI feeds them (no augmentation)."""
+    from satellite_computervision_tpu_torch.data.pipeline import (
+        get_eval_dataset,
+        make_preprocess_fn,
+    )
+
+    preprocess = make_preprocess_fn(list(cfg.bands), cfg.response, axes=cfg.axes,
+                                    splits=cfg.splits, augment=False, device=device)
+    for raw in get_eval_dataset(files, list(cfg.bands) + [cfg.response],
+                                kernel_size=cfg.kernel_size, batch_size=batch_size,
+                                device=device):
+        yield preprocess(raw, train=False)[0]
+
+
+def calibrate_head_(torch, model, cfg, files, device, share=0.2):
+    """Shift ``model``'s head bias so that about ``share`` of the pixels of
+    the first eval batch score above the preset's threshold (random weights
+    alone score none, and a report of one predicted class would hold the
+    folded and unfolded evaluations to nothing). Leaves ``model`` on the
+    CPU."""
+    x = next(eval_inputs(cfg, files[:1], device, batch_size=4))
+    with torch.no_grad():
+        logits = model.to(device)(x)["logits"].float().flatten()
+        cut = torch.quantile(logits[:: max(1, logits.numel() // 100000)], 1.0 - share).item()
+        model.head.bias += math.log(cfg.threshold / (1.0 - cfg.threshold)) - cut
+    model.cpu()
+
+
+def h5_phase(torch, predict, evaluate_cli, stitch, pre, work, eval_glob, scene, geometry,
+             smi, device="cuda", seed=SEED, hybrid_side=LANDCOVER_HYBRID_SIDE, h5_files=None):
+    """The Keras ``.h5`` bridge at full width: a reference-layout solar
+    U-Net out to the reference's layout and back, evaluated and served;
+    the other four families out and back. With ``h5py`` (``h5_files``
+    None: present or not) the U-Net goes through the ``export`` CLI, the
+    ``evaluate --h5`` CLI and ``compat.get_blob_model`` on a ``file://``
+    URL; without it the same exporters, loaders and ``load_h5_model``
+    take the layers in memory (what the file would hold). Returns (fields,
+    counts)."""
+    import dataclasses
+    import importlib.util
+
+    from satellite_computervision_tpu_torch import compat
+    from satellite_computervision_tpu_torch import export as export_cli
+    from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
+    from satellite_computervision_tpu_torch.models import UNet, fold_unet
+    from satellite_computervision_tpu_torch.ops import chips as ops_chips
+    from satellite_computervision_tpu_torch.train import keras_export, keras_import
+    from satellite_computervision_tpu_torch.train.checkpoint import build_empty, save_checkpoint
+    from satellite_computervision_tpu_torch.train.config import CONFIGS
+    from satellite_computervision_tpu_torch.train.zoo import get_family
+
+    if h5_files is None:
+        h5_files = importlib.util.find_spec("h5py") is not None
+    dev = torch.device(device)
+    cfg = CONFIGS["solar"]
+    gen = torch.Generator().manual_seed(seed + 40)
+    root = os.path.join(work, "h5")
+    os.makedirs(root, exist_ok=True)
+    zero_counts(pre, stitch)
+    t_phase = time.perf_counter()
+    fields = dict(h5py="present" if h5_files else "absent", nvidia_smi=smi)
+
+    # ---- the U-Net out to .h5 and back
+    files = sorted(glob.glob(eval_glob))
+    check(files, f"no eval records at {eval_glob}")
+    model = UNet(len(cfg.bands), n_classes=1, head="sigmoid", threshold=cfg.threshold,
+                 **H5_UNET).eval()
+    randomize_(model, gen)
+    calibrate_head_(torch, model, cfg, files, dev)
+    ckpt = os.path.join(root, "ckpt")
+    save_checkpoint(ckpt, model, {"seed": seed})
+    h5_path = os.path.join(root, "solar_unet.h5")
+    t0 = time.perf_counter()
+    if h5_files:
+        run_cli(export_cli, ["--config", "solar", "--ckpt", ckpt, "--out", h5_path,
+                             "--device", device])
+        layers = keras_import.keras_layers(h5_path)
+        h5_bytes = os.path.getsize(h5_path)
+    else:
+        with contextlib.redirect_stdout(sys.stderr):
+            layers = keras_export.keras_unet_layers(
+                predict.load_model(ckpt, dev, cfg=cfg, dtype=torch.float32))
+        h5_bytes = "not measured (h5py absent)"
+    export_s = time.perf_counter() - t0
+    arch = keras_import.infer_unet_arch(layers)
+    want_arch = dict(bands=len(cfg.bands), filters=H5_UNET["filters"],
+                     factors=H5_UNET["factors"], convs_per_block=1, n_classes=1)
+    check(arch == want_arch, f"infer_unet_arch gave {arch}, not {want_arch}")
+    t0 = time.perf_counter()
+    back = keras_import.load_keras_unet_h5(
+        layers, build_empty(UNet, arch["bands"], n_classes=1, head="sigmoid",
+                            threshold=cfg.threshold, filters=arch["filters"],
+                            factors=arch["factors"], convs_per_block=1))
+    import_s = time.perf_counter() - t0
+    want_state = model.state_dict()
+    check(all(torch.equal(v, want_state[k]) for k, v in back.state_dict().items()
+              if not k.endswith("num_batches_tracked")),
+          "the re-imported U-Net state_dict is not bit-equal to the original")
+    fields["unet"] = dict(arch={k: list(v) if isinstance(v, tuple) else v
+                                for k, v in arch.items()},
+                          layers=len(layers), weight_bytes=_payload_bytes(layers),
+                          h5_bytes=h5_bytes, export_seconds=export_s, import_seconds=import_s,
+                          state_bit_equal=True)
+
+    # ---- evaluate: --ckpt, --h5 --no-fold, --h5 folded on the eval records
+    reports, seconds = {}, {}
+    for mode in ("ckpt", "h5_no_fold", "h5_folded"):
+        t0 = time.perf_counter()
+        if mode == "ckpt" or h5_files:
+            source = ["--ckpt", ckpt] if mode == "ckpt" else ["--h5", h5_path]
+            flags = ["--no-fold"] if mode == "h5_no_fold" else []
+            report, _, _ = run_cli(evaluate_cli, ["--config", "solar", "--eval", eval_glob,
+                                                  "--device", device] + source + flags)
+        else:
+            with contextlib.redirect_stdout(sys.stderr):
+                served = evaluate_cli.load_h5_model(layers, cfg, dev,
+                                                    fold=mode == "h5_folded")
+            report = evaluate_cli.confusion_report(served, cfg, files, dev)
+        sync(device)
+        seconds[mode] = time.perf_counter() - t0
+        reports[mode] = np.asarray(report["counts"])
+    total = int(reports["ckpt"].sum())
+    check(all(int(c.sum()) == total for c in reports.values()), "eval pixel counts differ")
+    check(np.array_equal(reports["h5_no_fold"], reports["ckpt"]),
+          f"evaluate --h5 --no-fold {reports['h5_no_fold'].tolist()} differs from "
+          f"--ckpt {reports['ckpt'].tolist()}")
+    check(reports["ckpt"][:, 1].sum() > 0 and reports["ckpt"][:, 0].sum() > 0,
+          f"one class predicted: {reports['ckpt'].tolist()}")
+    moved = int(np.abs(reports["h5_folded"] - reports["ckpt"]).sum() // 2)
+    # folded BN in bfloat16 rounds other products than the live BN, so a
+    # pixel near the threshold may change class: each moved pixel must be
+    # one whose float32 probability lies within 1e-2 of the threshold (the
+    # bound of tests/test_torch_evaluate.py for bfloat16 against float32)
+    f32 = predict.to_serving(back, dev, torch.float32)
+    near = 0
+    with torch.inference_mode():
+        for x in eval_inputs(cfg, files, dev):
+            near += int(((f32(x)["probs"] - cfg.threshold).abs() < 1e-2).sum())
+    check(moved <= near, f"folded evaluate moved {moved} of {total} pixels; only {near} "
+          "lie within 1e-2 of the threshold in float32")
+    fields["evaluate"] = dict(counts={k: v.tolist() for k, v in reports.items()},
+                              eval_pixels=total, folded_pixels_moved=moved,
+                              folded_moved_share=moved / total,
+                              f32_pixels_near_threshold=near, seconds=seconds,
+                              via="CLI" if h5_files else "load_h5_model + confusion_report")
+
+    # ---- serve the imported weights over the slice scene
+    t0 = time.perf_counter()
+    if h5_files:
+        url = "file://" + os.path.abspath(h5_path)
+        served = compat.get_blob_model(weights_url=url, target=build_empty(
+            UNet, arch["bands"], n_classes=1, head="sigmoid", threshold=cfg.threshold,
+            filters=arch["filters"], factors=arch["factors"], convs_per_block=1),
+            family="unet")
+    else:
+        served = back
+    served = predict.to_serving(fold_unet(served), dev)
+    load_s = time.perf_counter() - t0
+    kernel, buffer, batch = geometry
+    chip_preds = []
+
+    def probs(chips):
+        with torch.inference_mode():
+            out = served(chips)["probs"]
+        chip_preds.append(out)
+        return out
+
+    engine = TiledInferenceEngine(probs, kernel=kernel, buffer=buffer, batch_size=batch,
+                                  blend="hann", device=device)
+    t0 = time.perf_counter()
+    hann_out = engine.predict_scene(scene)
+    sync(device)
+    hann_s = time.perf_counter() - t0
+    h, w = scene.shape[:2]
+    check(hann_out.shape == (h, w, 1) and bool(torch.isfinite(hann_out).all())
+          and float(hann_out.min()) >= 0.0 and float(hann_out.max()) <= 1.0,
+          "the h5 U-Net's scene is not finite probabilities of the scene's shape")
+    chip_preds.clear()
+
+    def plain_probs(chips):  # the same forward without the capture
+        with torch.inference_mode():
+            return served(chips)["probs"]
+
+    t0 = time.perf_counter()
+    summed = compat.predict_chips(scene, None, np.zeros((h, w, 1), np.float32), plain_probs,
+                                  kernel=kernel, buff=buffer, device=device)
+    sync(device)
+    chips_s = time.perf_counter() - t0
+    counts = kernel_counts(pre, stitch)
+    check(counts["hann_stitch"] == 1, f"hann_stitch launched {counts} times on the h5 path")
+
+    # held against their plain versions (launches not counted): the
+    # engine's stitch on its own chip predictions, and predict_chips
+    # against the ops.chips per-chip loop
+    engine.predict_scene(scene)
+    rows, cols = -(-h // kernel), -(-w // kernel)
+    preds = torch.cat(chip_preds).float()[: rows * cols]
+    canvas = stitch.hann_stitch(preds, kernel, rows, cols, apply_window=True)
+    plain = stitch.hann_stitch_reference(preds, kernel, rows, cols, apply_window=True)
+    stitch_err = (canvas - plain).abs().max().item()
+    check(stitch_err == 0.0, f"hann_stitch differs from its plain version: {stitch_err}")
+    half = buffer // 2
+    check(torch.equal(canvas[half:half + h, half:half + w], hann_out),
+          "the engine's map is not the stitched canvas")
+    idx = ops_chips.generate_chip_indices(h, w, kernel, buffer, mode="reference")
+    scene_dev = torch.from_numpy(np.asarray(scene)).to(dev)
+    chips = ops_chips.extract_chips(scene_dev, idx, kernel, buffer)
+    # batches as the engine makes them: the last one filled up with its
+    # final chip, so each forward sees the same batch on either side
+    filled = torch.cat([chips, chips[-1:].expand((-len(chips)) % batch, *chips.shape[1:])])
+    loop_preds = torch.cat([plain_probs(filled[i:i + batch]).float()
+                            for i in range(0, len(filled), batch)])[: len(chips)]
+    loop = ops_chips.stitch_chips(loop_preds, idx, (h, w, 1), kernel, buffer, blend="sum")
+    chips_err = (summed - loop).abs().max().item()
+    check(chips_err <= 1e-6, f"predict_chips differs from the ops.chips loop: {chips_err}")
+    fields["serve"] = dict(load_seconds=load_s, via="get_blob_model" if h5_files else "layers",
+                           hann_seconds=hann_s, hann_launches=counts["hann_stitch"],
+                           stitch_max_abs_err=stitch_err, predict_chips_seconds=chips_s,
+                           predict_chips_chips=len(idx),
+                           predict_chips_vs_chip_loop_max_abs_err=chips_err)
+
+    # ---- the other four families at their presets' widths: out and back,
+    # the forward on the device before and after
+    fam_fields = {}
+    for name, preset, suffix in H5_FAMILIES:
+        fcfg = CONFIGS[preset]
+        if name == "hybrid":
+            fcfg = dataclasses.replace(fcfg, kernel_size=hybrid_side)
+        family = get_family(name)
+        fmodel = family.build(fcfg).eval()
+        randomize_(fmodel, gen)
+        fmodel = fmodel.to(dev)
+        inputs = [(torch.rand((2,) + a.shape[1:], generator=gen)).to(dev)
+                  for a in family.example_inputs(fcfg)]
+        t0 = time.perf_counter()
+        if h5_files:
+            fpath = os.path.join(root, f"{name}.h5")
+            getattr(keras_export, f"export_keras_{suffix}_h5")(fmodel, fpath)
+            flayers = keras_import.keras_layers(fpath)
+            fbytes = os.path.getsize(fpath)
+        else:
+            flayers = getattr(keras_export, f"keras_{suffix}_layers")(fmodel)
+            fbytes = "not measured (h5py absent)"
+        fexport_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fback = getattr(keras_import, f"load_keras_{suffix}_h5")(
+            flayers, build_empty(family.build, fcfg)).to(dev)
+        fimport_s = time.perf_counter() - t0
+        quarters = _forget_quarters(fmodel)
+        state_err, fwant = 0.0, fmodel.state_dict()
+        for k, v in fback.state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            diff = (v - fwant[k]).abs()
+            if k in quarters:
+                state_err = max(state_err, diff[quarters[k]].max().item())
+                diff[quarters[k]] = 0
+            check(float(diff.max()) == 0.0, f"{name}: {k} changed in the round trip")
+        check(state_err <= 2.4e-7, f"{name}: forget biases moved {state_err}")
+        with torch.inference_mode():
+            before, after = fmodel(*inputs), fback(*inputs)
+        before = before if isinstance(before, dict) else {"out": before}
+        after = after if isinstance(after, dict) else {"out": after}
+        errs = {k: (after[k].float() - v.float()).abs().max().item()
+                for k, v in before.items() if k != "classes"}
+        scale = max(v.float().abs().max().item() for k, v in before.items() if k != "classes")
+        bit_equal = all(torch.equal(after[k], v) for k, v in before.items())
+        check(bit_equal if not quarters else max(errs.values()) <= 1e-5 * max(scale, 1.0),
+              f"{name}: the forward changed in the round trip: {errs}")
+        fam_fields[name] = dict(preset=preset, layers=len(flayers),
+                                weight_bytes=_payload_bytes(flayers), h5_bytes=fbytes,
+                                export_seconds=fexport_s, import_seconds=fimport_s,
+                                forget_bias_max_abs_err=state_err if quarters else None,
+                                forward_bit_equal=bit_equal, forward_max_abs_err=errs)
+    fields["families"] = fam_fields
+    fields["seconds"] = time.perf_counter() - t_phase
+    return fields, counts
+
+
 def main():
     import torch
 
@@ -2847,6 +3175,16 @@ def main():
     emit("parallel", **parallel)
     serving_launches.update({p: c["hann_stitch"] for p, c in parallel_counts.items()})
     new_paths.update(parallel_counts)
+
+    # ---- the Keras .h5 bridge: a reference-layout U-Net out and back,
+    # evaluated and served through the hann engine; four families out and back
+    torch.cuda.empty_cache()
+    h5, h5_counts = h5_phase(torch, predict, evaluate_cli, stitch, pre, work,
+                             os.path.join(work, "tfrecords", "eval-*.tfrecord.gz"), scene,
+                             (kernel, buffer, batch), smi)
+    emit("h5", **h5)
+    serving_launches["h5"] = h5_counts["hann_stitch"]
+    new_paths["h5"] = h5_counts
     train_by_path = {"train": train_launches["fused_preprocess"],
                      **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
 

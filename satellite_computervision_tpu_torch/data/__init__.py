@@ -1,6 +1,8 @@
-"""Host-side ingestion: the TFRecord codec (own copy), chip datasets, the
-pinned-memory device prefetcher and the on-device batch preprocess."""
+"""Host-side ingestion: the TFRecord codec (own copy), file-ID matching
+(own copy), chip datasets, the pinned-memory device prefetcher and the
+on-device batch preprocess."""
 
+from satellite_computervision_tpu_torch.data.matching import get_file_id, match_files, split_files
 from satellite_computervision_tpu_torch.data.pipeline import (
     ChipDataset,
     TrainIterator,
@@ -25,6 +27,9 @@ __all__ = [
     "write_tfrecord_file",
     "parse_example",
     "build_example",
+    "get_file_id",
+    "match_files",
+    "split_files",
     "ChipDataset",
     "TrainIterator",
     "get_training_dataset",

@@ -1,7 +1,7 @@
 """The model families (PyTorch): U-Net, Siamese U-Net, DeepLab v3+,
 ConvLSTM and LSTM autoencoder, ACNN and hierarchical ACNN, hybrid U-Net +
-ConvLSTM; the U-Net's BN folding, the flax weight bridge, losses and
-metrics."""
+ConvLSTM; the U-Net's BN folding, the flax weight bridge (both ways),
+losses and metrics."""
 
 from satellite_computervision_tpu_torch.models.blocks import (
     ASPP,
@@ -12,7 +12,7 @@ from satellite_computervision_tpu_torch.models.blocks import (
 )
 from satellite_computervision_tpu_torch.models import losses, metrics
 from satellite_computervision_tpu_torch.models.acnn import ACNN, ACNNTrunk, HierarchicalACNN
-from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
+from satellite_computervision_tpu_torch.models.bridge import flax_to_torch, torch_to_flax
 from satellite_computervision_tpu_torch.models.deeplab import (
     BottleneckBlock,
     DeepLabV3Plus,
@@ -61,6 +61,7 @@ __all__ = [
     "unet_parking",
     "fold_unet",
     "flax_to_torch",
+    "torch_to_flax",
     "flax_init_",
     "losses",
     "metrics",

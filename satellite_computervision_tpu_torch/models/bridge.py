@@ -1,6 +1,7 @@
-"""Weight bridge: flax model variables (nested dicts of numpy arrays) ->
+"""Weight bridge: flax model variables (nested dicts of numpy arrays) <->
 the port's ``state_dict``, for every model of the zoo (U-Net, Siamese
 U-Net, DeepLab v3+, the ConvLSTM models, the ACNNs, the hybrid).
+:func:`flax_to_torch` goes one way, :func:`torch_to_flax` the other.
 
 The port's module names follow the flax tree, so a torch key
 ``DecoderBlock_0.Conv_1.weight`` reads from
@@ -22,11 +23,14 @@ changes on the way:
 Works for unfolded trees (``{params, batch_stats}``) and folded ones
 (``params`` only, with ``affine_0_scale/bias``); the target ``model``
 decides which keys are expected. Every leaf of the flax tree must be used.
+Both directions walk the same ``named_modules``, so
+``flax_to_torch(*torch_to_flax(model), model)`` is ``model.state_dict()``
+(``num_batches_tracked`` set to 0: flax keeps no such counter).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,3 +100,49 @@ def flax_to_torch(params: Mapping, batch_stats: Optional[Mapping],
     if missing:
         raise KeyError(f"model keys with no flax source: {sorted(missing)}")
     return out
+
+
+def _put(tree: Dict, path, value: np.ndarray) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy; a meta tensor (a ``build_empty`` model) gives
+    zeros of its shape, so such a model is a template of the tree's layout."""
+    if t.is_meta:
+        return np.zeros(tuple(t.shape), np.float32)
+    return t.detach().float().cpu().numpy().copy()
+
+
+def torch_to_flax(model: nn.Module) -> Tuple[Dict, Dict]:
+    """``model``'s weights as flax ``(params, batch_stats)``: nested dicts
+    of float32 numpy arrays keyed by the module path, the inverse of
+    :func:`flax_to_torch`. A BatchNorm without running statistics
+    (``track_running_stats=False``) has no ``batch_stats`` entry."""
+    params: Dict = {}
+    stats: Dict = {}
+    for name, mod in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(mod, nn.ConvTranspose2d):
+            w = _numpy(mod.weight)  # (in, out, kh, kw)
+            _put(params, path + ("kernel",),
+                 np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1]))
+            _put(params, path + ("bias",), _numpy(mod.bias))
+        elif isinstance(mod, nn.Conv2d):
+            _put(params, path + ("kernel",),
+                 np.ascontiguousarray(_numpy(mod.weight).transpose(2, 3, 1, 0)))
+            if mod.bias is not None:
+                _put(params, path + ("bias",), _numpy(mod.bias))
+        elif isinstance(mod, nn.BatchNorm2d):
+            _put(params, path + ("scale",), _numpy(mod.weight))
+            _put(params, path + ("bias",), _numpy(mod.bias))
+            if mod.running_mean is not None:
+                _put(stats, path + ("mean",), _numpy(mod.running_mean))
+                _put(stats, path + ("var",), _numpy(mod.running_var))
+        else:
+            for pname, p in mod.named_parameters(recurse=False):
+                _put(params, path + (pname,), _numpy(p))
+    return params, stats

@@ -8,8 +8,9 @@ torch's Philox and JAX's threefry never give the same numbers. Draws are
 made on the generator's device (a CPU generator by default) and the
 multipliers are moved to the image's device by the ops.
 
-The HSV pair (``rgb_to_hsv``/``hsv_to_rgb``/``aug_color_hsv``) is not
-ported yet.
+The HSV pair (``rgb_to_hsv``/``hsv_to_rgb``) matches ``tf.image``, as the
+JAX pair does; ``aug_color_hsv`` takes its four draws from
+``draw_hsv_params``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,78 @@ def aug_color(img: torch.Tensor, contra, bright, nan_aware: bool = False) -> tor
     contra = torch.as_tensor(contra, dtype=img.dtype).to(img.device)
     bright = torch.as_tensor(bright, dtype=img.dtype).to(img.device)
     return (img - ch_mean) * contra + ch_mean * bright
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    """Channels-last RGB in [0, 1] -> HSV, matching ``tf.image.rgb_to_hsv``."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    delta = maxc - minc
+    zero, one = torch.zeros_like(maxc), torch.ones_like(maxc)
+    safe = torch.where(delta == 0, one, delta)
+    s = torch.where(maxc == 0, zero, delta / torch.where(maxc == 0, one, maxc))
+    rc = (maxc - r) / safe
+    gc = (maxc - g) / safe
+    bc = (maxc - b) / safe
+    h = torch.where(maxc == r, bc - gc, torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta == 0, zero, torch.remainder(h / 6.0, 1.0))
+    return torch.stack([h, s, v], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """HSV -> channels-last RGB, matching ``tf.image.hsv_to_rgb``."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    sector = torch.remainder(i.to(torch.int32), 6)
+    table = ((v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v), (v, p, q))
+    rgb = []
+    for ch in range(3):
+        out = torch.zeros_like(v)
+        for k, row in enumerate(table):
+            out = torch.where(sector == k, row[ch], out)
+        rgb.append(out)
+    return torch.stack(rgb, dim=-1)
+
+
+def draw_hsv_params(generator: Optional[torch.Generator], max_hue_delta: float = 0.05,
+                    saturation_range=(0.6, 1.6), max_brightness_delta: float = 0.05,
+                    contrast_range=(0.7, 1.3)) -> Tuple[float, float, float, float]:
+    """(hue delta, saturation scale, brightness delta, contrast scale), each
+    uniform over its range, as the reference's tf.image.random_* chain
+    draws them."""
+    u = torch.rand(4, generator=generator, dtype=torch.float64).tolist()
+
+    def between(x, lo, hi):
+        return lo + (hi - lo) * x
+
+    return (between(u[0], -max_hue_delta, max_hue_delta),
+            between(u[1], *saturation_range),
+            between(u[2], -max_brightness_delta, max_brightness_delta),
+            between(u[3], *contrast_range))
+
+
+def aug_color_hsv(img: torch.Tensor, hue_delta, saturation, brightness_delta,
+                  contrast) -> torch.Tensor:
+    """HSV-space color augmentation of channels-last RGB with the draws
+    given (:func:`draw_hsv_params`): hue shift, saturation scale, brightness
+    delta, contrast scale about the per-channel spatial mean — the
+    reference's ``augColor`` (utils/processing.py:154-167)."""
+    def scalar(x):
+        return torch.as_tensor(x, dtype=img.dtype).to(img.device)
+
+    hsv = rgb_to_hsv(img)
+    hue = torch.remainder(hsv[..., 0] + scalar(hue_delta), 1.0)
+    sat = torch.clamp(hsv[..., 1] * scalar(saturation), 0.0, 1.0)
+    x = hsv_to_rgb(torch.stack([hue, sat, hsv[..., 2]], dim=-1))
+    x = x + scalar(brightness_delta)
+    mean = x.mean(dim=(-3, -2), keepdim=True)
+    return (x - mean) * scalar(contrast) + mean
 
 
 def draw_morph_params(generator: Optional[torch.Generator]) -> Tuple[bool, bool, int]:

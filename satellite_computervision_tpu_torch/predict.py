@@ -156,11 +156,19 @@ def load_scene(path, max_rows=None):
     return (scene[..., None] if scene.ndim == 2 else scene), {}
 
 
+def to_serving(model: Model, device, dtype=None) -> Model:
+    """``model`` on ``device`` in ``dtype``; by default bfloat16 and
+    channels-last on CUDA, float32 on the CPU."""
+    if dtype is None and device.type == "cuda":
+        return model.to(device=device, dtype=torch.bfloat16, memory_format=torch.channels_last)
+    return model.to(device=device, dtype=dtype)
+
+
 def load_model(ckpt_dir: str, device, s2d=None, fold_bn: bool = False,
-               cfg=SOLAR_CONFIG, arch: str = "unet") -> Model:
+               cfg=SOLAR_CONFIG, arch: str = "unet", dtype=None) -> Model:
     """Restore ``<ckpt>/best`` for serving on ``device``: folded first if
-    asked (in float32; the unet only), then bfloat16 and channels-last on
-    CUDA, float32 on the CPU.
+    asked (in float32; the unet only), then in ``dtype`` (by default
+    bfloat16 and channels-last on CUDA, float32 on the CPU).
 
     ``best/model.pt`` (the port's format) rebuilds the saved model, which
     must be of the family ``arch``; for a unet ``s2d`` overrides its stem
@@ -202,10 +210,7 @@ def load_model(ckpt_dir: str, device, s2d=None, fold_bn: bool = False,
     print(f"restored checkpoint (meta: {json.dumps(meta)})")
     if fold_bn:
         model = fold_unet(model)
-    if device.type == "cuda":
-        return model.to(device=device, dtype=torch.bfloat16,
-                        memory_format=torch.channels_last)
-    return model.to(device)
+    return to_serving(model, device, dtype)
 
 
 def _uint8(probs: torch.Tensor) -> torch.Tensor:

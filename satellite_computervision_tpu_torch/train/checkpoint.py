@@ -37,7 +37,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from satellite_computervision_tpu_torch.models.acnn import ACNN, HierarchicalACNN
-from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
+from satellite_computervision_tpu_torch.models.bridge import flax_to_torch, torch_to_flax
 from satellite_computervision_tpu_torch.models.convlstm import LSTMAutoencoder, LSTMModel
 from satellite_computervision_tpu_torch.models.deeplab import DeepLabV3Plus
 from satellite_computervision_tpu_torch.models.hybrid import HybridUNetLSTM
@@ -141,20 +141,6 @@ def load_flax_weights(model: Model, tree: Dict[str, Any]) -> Model:
     return model.eval()
 
 
-def _bn_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
-    """``model``'s BatchNorm running statistics as a flax ``batch_stats``
-    tree (``{"mean", "var"}`` at each BatchNorm's module path)."""
-    tree: Dict[str, Any] = {}
-    for name, mod in model.named_modules():
-        if isinstance(mod, torch.nn.BatchNorm2d):
-            node = tree
-            for part in name.split("."):
-                node = node.setdefault(part, {})
-            node["mean"] = mod.running_mean.detach().cpu().numpy()
-            node["var"] = mod.running_var.detach().cpu().numpy()
-    return tree
-
-
 def load_remote_weights(url: str, model: Model) -> Model:
     """Fetch a flax msgpack blob by URL (``https://``, or ``file://``) and
     load it into ``model`` in place: a state tree with ``params`` (and
@@ -168,7 +154,7 @@ def load_remote_weights(url: str, model: Model) -> Model:
     if "params" in tree:
         params, stats = tree["params"], tree.get("batch_stats")
     else:
-        params, stats = tree, _bn_stats_tree(inner)
+        params, stats = tree, torch_to_flax(inner)[1]
     state = flax_to_torch(params, stats, inner)
     with torch.no_grad():
         for key, value in inner.state_dict().items():

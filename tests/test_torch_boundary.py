@@ -135,7 +135,9 @@ def test_new_modules_are_covered():
                  "cloud.blob", "geo.crs", "geo.transforms", "geo.assembly", "ops.bands",
                  "ops.stats", "change_detection_end_to_end", "multistate_sweep", "parallel",
                  "parallel.mesh", "parallel.data_parallel", "parallel.sharded_inference",
-                 "parallel.spatial", "train.retrain"):
+                 "parallel.spatial", "train.retrain", "train.keras_import",
+                 "train.keras_export", "export", "ops.chips", "data.matching", "testing",
+                 "utils", "utils.profiling", "utils.logging", "utils.viz", "compat"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES
 
 
@@ -154,3 +156,48 @@ def test_parallel_entry_points_default_to_cuda(no_cuda, tmp_path):
     assert not dist.is_initialized()
     initialize_distributed(None, device="cpu")  # no coordinator: nothing to join
     assert not dist.is_initialized()
+
+
+def test_optional_packages_are_imported_in_functions_only():
+    """h5py (the .h5 bridge), matplotlib and PIL (utils.viz) may be absent
+    on a card host: every module imports with them refused."""
+    code = f"""
+import sys
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("h5py", "matplotlib", "PIL"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Blocker())
+import importlib
+for m in {MODULES!r}:
+    importlib.import_module(m)
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT.parent),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["ok"]
+
+
+def test_h5_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """The export CLI, evaluate --h5 and the compat functions that build an
+    engine or run a model raise without CUDA unless the CPU is asked for."""
+    from satellite_computervision_tpu_torch import compat
+    from satellite_computervision_tpu_torch import evaluate as evaluate_cli
+    from satellite_computervision_tpu_torch import export as export_cli
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_cli.main(["--ckpt", str(tmp_path), "--out", str(tmp_path / "x.h5")])
+    (tmp_path / "e.tfrecord.gz").touch()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_cli.main(["--h5", str(tmp_path / "x.h5"), "--eval",
+                           str(tmp_path / "e.tfrecord.gz")])
+    scene = np.zeros((64, 64, 2), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compat.predict_chips(scene, None, scene[..., :1], lambda c: c[..., :1], kernel=16,
+                             buff=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compat.predict_chunk(scene.transpose(2, 0, 1), m=lambda c: c)
+    assert compat.predict_chips(scene, None, scene[..., :1], lambda c: c[..., :1], kernel=16,
+                                buff=8, device="cpu").device.type == "cpu"

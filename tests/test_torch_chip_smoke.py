@@ -279,3 +279,50 @@ def test_parallel_phase_on_cpu(smoke, monkeypatch):
         assert case["max_abs_err_vs_engine"] <= 1e-5
     assert fields["spatial"]["stitch_row_weights_max_abs_err"] == 0.0
     assert fields["sharded_engine"]["bit_equal_to_engine"]
+
+
+@pytest.mark.parametrize("h5_files", [True, False], ids=["files", "in_memory"])
+def test_h5_phase_on_cpu(smoke, monkeypatch, h5_files):
+    """h5: a reference-layout U-Net (filters 4/8, one conv per block) out
+    and back, evaluated (--ckpt, --h5 --no-fold, --h5 folded) on 4 solar
+    chips of 64², served over a 64 x 48 scene at k16 + b8 by the hann
+    engine (one stitch) and by predict_chips; the four other families
+    narrow (the hybrid at 24²) out and back. Through .h5 files and the
+    CLIs, and with the layers in memory (the route of a host without
+    h5py)."""
+    cs, _, work = smoke
+    monkeypatch.setattr(cs, "H5_UNET", dict(filters=(4, 8), factors=(2, 2), convs_per_block=1))
+    solar = dataclasses.replace(CONFIGS["solar"], kernel_size=64)
+    monkeypatch.setitem(CONFIGS, "solar", solar)
+    _narrow(monkeypatch, siamese=dict(filters=(4, 8), factors=(2, 2)),
+            convlstm=dict(features=4), lstm_autoencoder=dict(features=4),
+            hybrid=dict(filters=(4, 8), factors=(3, 2), lstm_features=4))
+    root = pathlib.Path(work) / "tf"
+    root.mkdir()
+    cs.synthesize_chips(str(root / "eval-0.tfrecord.gz"), 4, list(solar.bands), solar.response,
+                        64, 3)
+    scene = np.random.default_rng(0).uniform(0, 0.4, (64, 48, 6)).astype(np.float32)
+    fields, counts = cs.h5_phase(torch, predict, evaluate, stitch, pre, work,
+                                 str(root / "eval-*.tfrecord.gz"), scene, GEOMETRY, "card",
+                                 device="cpu", hybrid_side=24, h5_files=h5_files)
+    assert counts == {"hann_stitch": 1, "fused_preprocess": 0}
+    assert fields["h5py"] == ("present" if h5_files else "absent")
+    unet = fields["unet"]
+    assert unet["arch"] == dict(bands=6, filters=[4, 8], factors=[2, 2], convs_per_block=1,
+                                n_classes=1)
+    assert unet["layers"] == 2 + 1 + 2 * 6 + 1 and unet["state_bit_equal"]
+    assert isinstance(unet["h5_bytes"], int) == h5_files
+    ev = fields["evaluate"]
+    assert ev["eval_pixels"] == 4 * 64 * 64
+    assert ev["counts"]["h5_no_fold"] == ev["counts"]["ckpt"]
+    assert ev["folded_pixels_moved"] == 0 <= ev["f32_pixels_near_threshold"]  # float32 here
+    serve = fields["serve"]
+    assert serve["hann_launches"] == 1 and serve["stitch_max_abs_err"] == 0.0
+    assert serve["predict_chips_chips"] == 3 * 2  # rows 4, 20, 36; columns 4, 20
+    assert serve["predict_chips_vs_chip_loop_max_abs_err"] == 0.0
+    fams = fields["families"]
+    assert sorted(fams) == ["convlstm", "hybrid", "lstm_autoencoder", "siamese"]
+    assert fams["siamese"]["forward_bit_equal"]
+    assert fams["siamese"]["forget_bias_max_abs_err"] is None
+    for name in ("convlstm", "lstm_autoencoder", "hybrid"):
+        assert fams[name]["forget_bias_max_abs_err"] <= 2.4e-7
