@@ -17,7 +17,10 @@ line):
    with a NaN plane, negative and zero contrast and every flip/rotation,
    and at the parking preset's 16 x 512² x 4 chips, whose rows do not fit
    in shared memory: the kernel's streamed route; ``hann_stitch`` also at
-   the swath's band shapes, the culled chips' predictions zero). ``ms``,
+   the swath's band shapes, the culled chips' predictions zero, and at
+   ``parallel.spatial``'s band over the slice scene: 24 x 640² with a
+   phantom chip row each side and the whole grid's row weights, timed).
+   ``ms``,
    ``plain_ms``
    and ``library_ms`` are on one clock: CUDA events around back-to-back
    calls, host overhead included. ``device_ms`` beside them is the
@@ -190,7 +193,19 @@ line):
    exporters, loaders and ``evaluate.load_h5_model`` take the layers in
    memory, which is what the file would hold; the file layer is held by
    the CPU tests.
-18. ``profile``: one warm scene, three warm train steps, five warm
+18. ``convergence``: the four convergence twins through their ``main``
+   at full model width, cut to a rehearsal — ``solar_convergence`` (32
+   train and 16 eval chips, batch 16, ``--scene-eval``: chips, hann and
+   whole modes), ``change_convergence`` (16 and 8 pairs, batch 8,
+   ``--scene-eval``: hann and whole through ``change_pair_composite``),
+   ``parking_convergence --model deeplab`` (32 and 16 chips of 512²,
+   ``--export-backbone``, then 16 chips ``--torch-weights`` from it) and
+   ``swath_codec_sweep`` (one 1536 x 8192 x 4 uint16 LZW COG, k512 +
+   b128, batch 16, three bands); their records against the JAX scripts'
+   keys, losses finite, the kernels' launches per run (``hann_stitch``
+   once per scene eval and once per swath band, ``fused_preprocess``
+   never) and every stitch of the runs bit-equal to its plain version.
+19. ``profile``: one warm scene, three warm train steps, five warm
    ``make_preprocess_fn`` calls, three warm change train steps, one warm
    change pair, one warm parking scene and three warm DeepLab train steps
    under ``torch.profiler``: device time by kernel, host time by op and
@@ -342,33 +357,44 @@ def fold_blend(preds, k, rows, cols, window, inv_w):
     return canvas[0].permute(1, 2, 0) * inv_w[..., None]
 
 
-def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed, culled_rows=0):
+def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed, culled_rows=0,
+                culled_last_rows=0, row_weights=None):
     """hann_stitch on the card against its plain version: the engine's
     route (raw predictions, ``apply_window=True``: bit-equal) and the TPU
     kernel's (pre-weighted chips); the engine's route timed. The chips of
-    the first ``culled_rows`` grid rows are zero, as culled chips reach the
-    stitch."""
+    the first ``culled_rows`` and the last ``culled_last_rows`` grid rows
+    are zero, as culled chips and a spatial band's phantom rows reach the
+    stitch. ``row_weights`` (numpy, ((rows+1)*k,)) replaces the grid's row
+    sums in the normalizer, as ``parallel/spatial.py`` passes them."""
     side = k + buf
     preds = torch.rand((rows * cols, side, side, c_out), generator=gen)
     preds[: culled_rows * cols] = 0.0
+    if culled_last_rows:
+        preds[-culled_last_rows * cols:] = 0.0
     preds = preds.cuda()
+    rw = None if row_weights is None else torch.from_numpy(row_weights).cuda()
     window = stitch.hann_window_2d(side, "cuda")
     weighted = (preds * window[..., None]).contiguous()
-    got = stitch.hann_stitch(preds, k, rows, cols, apply_window=True)
-    want = stitch.hann_stitch_reference(preds, k, rows, cols, apply_window=True)
-    got_w = stitch.hann_stitch(weighted, k, rows, cols)
-    want_w = stitch.hann_stitch_reference(weighted, k, rows, cols)
+    got = stitch.hann_stitch(preds, k, rows, cols, apply_window=True, row_weights=rw)
+    want = stitch.hann_stitch_reference(preds, k, rows, cols, apply_window=True, row_weights=rw)
+    got_w = stitch.hann_stitch(weighted, k, rows, cols, row_weights=rw)
+    want_w = stitch.hann_stitch_reference(weighted, k, rows, cols, row_weights=rw)
     torch.cuda.synchronize()
     out = dict(shape=[rows * cols, side, side, c_out], kernel=k, canvas=list(got.shape),
                max_abs_err=(got - want).abs().max().item(),
                weighted_max_abs_err=(got_w - want_w).abs().max().item())
     if timed:
-        inv_w = torch.from_numpy(stitch.hann_inverse_weights(rows, cols, k, side)).cuda()
+        if row_weights is None:
+            inv_w = stitch.hann_inverse_weights(rows, cols, k, side)
+        else:
+            wx = stitch._axis_weight_sum(cols, k, side)
+            inv_w = 1.0 / np.maximum(row_weights[:, None] * wx[None, :], 1e-8)
+        inv_w = torch.from_numpy(inv_w).cuda()
         lib = fold_blend(preds, k, rows, cols, window, inv_w)
         out["library_max_abs_err"] = (lib - want).abs().max().item()
 
         def kernel():
-            stitch.hann_stitch(preds, k, rows, cols, apply_window=True)
+            stitch.hann_stitch(preds, k, rows, cols, apply_window=True, row_weights=rw)
 
         def library():
             fold_blend(preds, k, rows, cols, window, inv_w)
@@ -376,10 +402,11 @@ def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed, culled_row
         out["ms"] = cuda_ms(kernel)
         out["device_ms"] = device_ms(kernel, "hann_stitch_kernel")
         out["plain_ms"] = cuda_ms(lambda: stitch.hann_stitch_reference(
-            preds, k, rows, cols, apply_window=True), iters=10, warmup=2)
+            preds, k, rows, cols, apply_window=True, row_weights=rw), iters=10, warmup=2)
         out["library_ms"] = cuda_ms(library)
         out["library_device_ms"] = device_ms(library)
-        # predictions, w1, wy, wx read once; the canvas written once
+        # predictions, w1, wy (or the row weights), wx read once; the canvas
+        # written once
         n_in = preds.numel() + side + (rows + 1) * k + (cols + 1) * k
         n_out = got.numel()
         # per chip pixel the window (w1*w1, p*w) and its add; per output
@@ -2920,6 +2947,148 @@ def h5_phase(torch, predict, evaluate_cli, stitch, pre, work, eval_glob, scene, 
     return fields, counts
 
 
+# the JAX scripts' record keys (examples/convergence_common.py and
+# examples/swath_codec_sweep.py), which the twins' records must hold
+EPOCH_KEYS = {"epoch", "train_loss", "eval_loss", "iou", "f1", "precision", "recall",
+              "accuracy", "secs"}
+SWATH_SCENE_KEYS = {"platform", "scene", "height", "width", "bands", "raw_mb", "in_mb",
+                    "out_mb", "calib_page", "kernel", "buffer", "max_rows", "secs",
+                    "mpix_per_s", "peak_rss_mb", "rss_now_mb"}
+SWATH_SUMMARY_KEYS = {"platform", "swath_scenes", "scene_mpix", "raw_mb_per_scene",
+                      "synth_secs", "synth_mb_per_s", "sweep_mpix_per_s", "peak_rss_mb",
+                      "rss_now_mb", "rss_start_mb", "rss_growth_mb", "band_mb", "config"}
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+# the convergence phase's rehearsal: each twin's sizes (one epoch of a
+# few batches), and the swath sweep's one scene of reduced height
+CONVERGENCE_SIZES = dict(
+    solar=["--train-size", "32", "--eval-size", "16", "--epochs", "1", "--batch-size", "16"],
+    change=["--train-size", "16", "--eval-size", "8", "--epochs", "1"],
+    parking_export=["--model", "deeplab", "--train-size", "32", "--eval-size", "16",
+                    "--epochs", "1"],
+    parking_warm=["--model", "deeplab", "--train-size", "16", "--eval-size", "16",
+                  "--epochs", "1"],
+    swath=dict(height=1536, width=8192, kernel=512, buffer=128, flags=[]),
+)
+
+
+def convergence_phase(torch, pre, stitch, work, device="cuda", sizes=CONVERGENCE_SIZES):
+    """The four convergence twins through ``main(argv)`` at full model
+    width, cut to a rehearsal (``sizes``): solar (U-Net 32…512, 2 steps of
+    16 chips, one eval batch, the scene eval's chips, hann and whole
+    modes), change (the Siamese U-Net, 2 steps of 8 pairs, one eval batch,
+    the scene eval through ``change_pair_composite`` in hann and whole
+    modes), parking (DeepLab v3+ on ResNet-50 at 512², 2 steps and an eval
+    batch, the backbone exported, then 1 step warm-started from it) and
+    the swath sweep (one 1536 x 8192 x 4 uint16 LZW COG, k512 + b128,
+    batch 16, three hann bands). Each run's records against the JAX
+    scripts' keys, losses finite, the kernels' launches counted per run
+    (one ``hann_stitch`` per solar and change scene eval, one per swath
+    band, none elsewhere) and every stitch of the runs held against its
+    plain version. Returns (fields, counts summed over the runs)."""
+    from satellite_computervision_tpu_torch import (
+        change_convergence,
+        parking_convergence,
+        solar_convergence,
+        swath_codec_sweep,
+    )
+    from satellite_computervision_tpu_torch.inference import tiles
+
+    root = os.path.join(work, "convergence")
+    os.makedirs(root, exist_ok=True)
+    for name in os.listdir(root):
+        if name.endswith(".jsonl"):
+            os.remove(os.path.join(root, name))
+    sw = sizes["swath"]
+    swath_bands = len(band_chip_rows(-(-sw["height"] // sw["kernel"]),
+                                     2 * sw["kernel"] + sw["buffer"], sw["kernel"],
+                                     sw["buffer"]))
+    bb = os.path.join(root, "backbone.pth")
+    runs = [
+        ("solar", solar_convergence, sizes["solar"] + [
+            "--scene-eval", "--out", os.path.join(root, "solar.jsonl")], 1),
+        ("change", change_convergence, sizes["change"] + [
+            "--scene-eval", "--out", os.path.join(root, "change.jsonl")], 1),
+        ("parking_export", parking_convergence, sizes["parking_export"] + [
+            "--export-backbone", bb, "--out", os.path.join(root, "parking.jsonl")], 0),
+        ("parking_warm", parking_convergence, sizes["parking_warm"] + [
+            "--torch-weights", bb, "--out", os.path.join(root, "parking.jsonl")], 0),
+        ("swath", swath_codec_sweep, sw["flags"] + [
+            "--scenes", "1", "--height", str(sw["height"]), "--width", str(sw["width"]),
+            "--kernel", str(sw["kernel"]), "--buffer", str(sw["buffer"]),
+            "--dir", os.path.join(root, "swath"), "--log", os.path.join(root, "swath.jsonl")],
+         swath_bands),
+    ]
+    recorded = []
+    real = tiles.hann_stitch
+
+    def recording(chips, *args, **kwargs):
+        recorded.append((chips.clone(), args, kwargs))
+        return real(chips, *args, **kwargs)
+
+    fields, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0}
+    tiles.hann_stitch = recording
+    try:
+        for name, module, argv, want in runs:
+            zero_counts(pre, stitch)
+            sync(device)
+            t0 = time.perf_counter()
+            summary, _, _ = run_cli(module, argv + ["--device", device])
+            sync(device)
+            seconds = time.perf_counter() - t0
+            launches = kernel_counts(pre, stitch)
+            check(launches == {"hann_stitch": want, "fused_preprocess": 0},
+                  f"convergence {name}: kernel launches {launches}, expected {want} hann_stitch")
+            for k, v in launches.items():
+                counts[k] += v
+            fields[name] = dict(seconds=seconds, launches=launches, summary=summary)
+    finally:
+        tiles.hann_stitch = real
+
+    for name in ("solar", "change", "parking"):
+        lines = _jsonl(os.path.join(root, f"{name}.jsonl"))
+        epochs = [r for r in lines if "epoch" in r]
+        check(epochs and all(EPOCH_KEYS | {"chips_per_s", "synth_secs"} <= set(r)
+                             for r in epochs), f"convergence {name}: records lack JAX's keys")
+        check(all(math.isfinite(r["train_loss"]) and math.isfinite(r["eval_loss"])
+                  for r in epochs), f"convergence {name}: a loss is not finite")
+        check(all("final" in r and "config" in r for r in lines if "epoch" not in r
+                  and "scene_eval_iou" not in r), f"convergence {name}: no summary line")
+        fields[name if name != "parking" else "parking_export"]["records"] = epochs
+    modes = {"solar": {"chips", "hann", "whole"}, "change": {"hann", "whole"}}
+    for name, want in modes.items():
+        iou = [r["scene_eval_iou"] for r in _jsonl(os.path.join(root, f"{name}.jsonl"))
+               if "scene_eval_iou" in r and "final" not in r]
+        check(len(iou) == 1 and set(iou[0]) == want,
+              f"convergence {name}: scene eval modes {iou}, expected {sorted(want)}")
+        fields[name]["scene_eval_iou"] = iou[0]
+    check([r.get("warm_start") for r in _jsonl(os.path.join(root, "parking.jsonl"))
+           if "epoch" in r] == [False, True], "parking: the warm start did not run")
+    swath = _jsonl(os.path.join(root, "swath.jsonl"))
+    check(len(swath) == 2 and SWATH_SCENE_KEYS | {"hann_stitch_launches"} <= set(swath[0])
+          and SWATH_SUMMARY_KEYS <= set(swath[1]["summary"]),
+          "convergence swath: records lack JAX's keys")
+    check(swath[0]["hann_stitch_launches"] == swath_bands, "swath: launches per band")
+
+    # every stitch of the runs on its plain version (launches not counted)
+    check(len(recorded) == counts["hann_stitch"], "a stitch was not recorded")
+    errs = []
+    for chips, args, kwargs in recorded:
+        got = stitch.hann_stitch(chips, *args, **kwargs)
+        errs.append((got - stitch.hann_stitch_reference(chips, *args, **kwargs))
+                    .abs().max().item())
+    check(all(e == 0.0 for e in errs), f"convergence: hann_stitch is not bit-equal: {errs}")
+    fields["stitch"] = dict(calls=len(recorded), max_abs_err=max(errs),
+                            shapes=[list(c.shape) for c, _, _ in recorded])
+    fields["seconds"] = sum(f["seconds"] for f in fields.values() if "seconds" in f)
+    return fields, counts
+
+
 def main():
     import torch
 
@@ -2934,6 +3103,7 @@ def main():
     from satellite_computervision_tpu_torch.kernels import _build, stitch
     from satellite_computervision_tpu_torch.kernels import preprocess as pre
     from satellite_computervision_tpu_torch.models import unet_solar
+    from satellite_computervision_tpu_torch.parallel.spatial import band_row_weights
     from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
     from satellite_computervision_tpu_torch.train.config import (
         CHANGE_CONFIG,
@@ -2984,14 +3154,21 @@ def main():
     # pair, 256 chips of 384² into a 4352² canvas
     a_rows = -(-ACQUIRE_SIDE // ck)
     acquire_shape = stitch_case(torch, stitch, ck, cb, a_rows, a_rows, 1, gen, timed=True)
+    # the band of parallel.spatial's hann core at world size 1 over the
+    # slice scene: its 4 chip rows and a phantom (zero) row on each side,
+    # 24 chips of 640² into a 3584 x 2560 canvas, the whole grid's row weights
+    spatial_shape = stitch_case(torch, stitch, kernel, buffer, rows + 2, cols, 1, gen,
+                                timed=True, culled_rows=1, culled_last_rows=1,
+                                row_weights=band_row_weights(rows, rows, 0, kernel,
+                                                             kernel + buffer))
     emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases,
          change=change_shape, change_bands=change_bands, parking=parking_shape,
-         acquire=acquire_shape)
+         acquire=acquire_shape, spatial_band=spatial_shape)
     # the engine's route: the same products and adds in the same order, so
     # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
-    cases = [small, main_shape, change_shape, parking_shape, acquire_shape] + band_cases \
-        + change_bands
+    cases = [small, main_shape, change_shape, parking_shape, acquire_shape, spatial_shape] \
+        + band_cases + change_bands
     check(all(c["max_abs_err"] == 0.0 for c in cases),
           "hann_stitch(apply_window=True) is not bit-equal to its plain version")
     check(all(c["weighted_max_abs_err"] <= tol for c in cases),
@@ -3185,6 +3362,14 @@ def main():
     emit("h5", **h5)
     serving_launches["h5"] = h5_counts["hann_stitch"]
     new_paths["h5"] = h5_counts
+
+    # ---- the convergence twins (solar, change, parking, swath sweep) at
+    # full width through main(argv), cut to a rehearsal
+    torch.cuda.empty_cache()
+    convergence, conv_counts = convergence_phase(torch, pre, stitch, work)
+    emit("convergence", **convergence)
+    serving_launches["convergence"] = conv_counts["hann_stitch"]
+    new_paths["convergence"] = conv_counts
     train_by_path = {"train": train_launches["fused_preprocess"],
                      **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
 
@@ -3219,7 +3404,10 @@ def main():
              "bound_by", "library_ms")},
          "acquire_shape": {k: acquire_shape[k] for k in (
              "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")}},
+             "bound_by", "library_ms")},
+         "spatial_band_shape": {k: spatial_shape[k] for k in (
+             "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_device_ms")}},
         {"name": "fused_preprocess", "route": "cuda",
          "source": "satellite_computervision_tpu_torch/csrc/fused_preprocess.cu",
          "replaces": "satellite_computervision_tpu/pallas/preprocess.py:135",

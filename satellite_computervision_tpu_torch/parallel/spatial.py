@@ -175,6 +175,18 @@ def _overwrite_core(engine, group, size, index):
     return run
 
 
+def band_row_weights(rows_total: int, rpd: int, index: int, kernel: int,
+                     side: int) -> np.ndarray:
+    """The whole grid's row sums of windows on the canvas rows of rank
+    ``index``'s hann band (``rpd`` core chip rows and one halo row per
+    side): canvas row y is global canvas row y + (index*rpd - 1) * kernel;
+    rows off the global canvas (cropped away later) get 1."""
+    wy = _axis_weight_sum(rows_total, kernel, side)
+    y = np.arange((rpd + 3) * kernel) + (index * rpd - 1) * kernel
+    inside = (y >= 0) & (y < len(wy))
+    return np.where(inside, wy[np.clip(y, 0, len(wy) - 1)], 1.0).astype(np.float32)
+
+
 def _hann_core(engine, group, size, index):
     kernel, buffer = engine.kernel, engine.buffer
     side = kernel + buffer
@@ -195,13 +207,7 @@ def _hann_core(engine, group, size, index):
         right = cols * kernel + half - w
         rows_ext = rpd + 2  # core chip rows and one halo row per side
         n_chips = rows_ext * cols
-        # the whole grid's row sums of windows on this band's canvas rows
-        # (canvas row y is global canvas row y + (index*rpd - 1) * kernel);
-        # rows off the global canvas are cropped away below
-        wy = _axis_weight_sum(rows_total, kernel, side)
-        y = np.arange((rows_ext + 1) * kernel) + (index * rpd - 1) * kernel
-        inside = (y >= 0) & (y < len(wy))
-        row_weights = np.where(inside, wy[np.clip(y, 0, len(wy) - 1)], 1.0).astype(np.float32)
+        row_weights = band_row_weights(rows_total, rpd, index, kernel, side)
         # chip rows outside the scene's grid contribute nothing
         g_rows = index * rpd + np.arange(rows_ext) - 1
         row_ok = ((g_rows >= 0) & (g_rows < rows_total)).astype(np.float32)

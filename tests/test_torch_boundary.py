@@ -12,8 +12,14 @@ import pytest
 import torch
 
 import satellite_computervision_tpu_torch as port
+from satellite_computervision_tpu_torch import change_convergence
 from satellite_computervision_tpu_torch import change_detection_end_to_end as change_twin
 from satellite_computervision_tpu_torch import multistate_sweep as sweep_twin
+from satellite_computervision_tpu_torch import (
+    parking_convergence,
+    solar_convergence,
+    swath_codec_sweep,
+)
 from satellite_computervision_tpu_torch import predict as cli
 from satellite_computervision_tpu_torch._device import resolve_device
 from satellite_computervision_tpu_torch.cloud import compositing, pc
@@ -60,7 +66,8 @@ print("ok", len({MODULES!r}))
     assert res.stdout.split() == ["ok", str(len(MODULES))]
 
 
-@pytest.mark.parametrize("path", sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py",
+                                                               ROOT.parent / "convergence_runs.py"],
                          ids=lambda p: str(p.relative_to(ROOT if ROOT in p.parents else ROOT.parent)))
 def test_no_jax_import_in_source(path):
     for node in ast.walk(ast.parse(path.read_text())):
@@ -105,7 +112,10 @@ def test_batch_prediction_defaults_to_cuda(no_cuda, tmp_path):
         run_batch_prediction(str(tmp_path), lambda x: x, ["B2"], str(tmp_path / "out"), "p")
 
 
-@pytest.mark.parametrize("twin", [change_twin, sweep_twin], ids=["change", "multistate"])
+@pytest.mark.parametrize("twin", [change_twin, sweep_twin, solar_convergence, swath_codec_sweep,
+                                  change_convergence, parking_convergence],
+                         ids=["change", "multistate", "solar_convergence", "swath_codec_sweep",
+                              "change_convergence", "parking_convergence"])
 def test_twins_default_to_cuda(no_cuda, twin):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         twin.main([])
@@ -137,7 +147,9 @@ def test_new_modules_are_covered():
                  "parallel.mesh", "parallel.data_parallel", "parallel.sharded_inference",
                  "parallel.spatial", "train.retrain", "train.keras_import",
                  "train.keras_export", "export", "ops.chips", "data.matching", "testing",
-                 "utils", "utils.profiling", "utils.logging", "utils.viz", "compat"):
+                 "utils", "utils.profiling", "utils.logging", "utils.viz", "compat",
+                 "convergence_common", "solar_convergence", "swath_codec_sweep",
+                 "change_convergence", "parking_convergence"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES
 
 

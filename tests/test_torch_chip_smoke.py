@@ -1,8 +1,8 @@
 """chip_smoke.py's serving phases (swath, sweep, whole, patches), its
 change-detection phases (change_train, change), its parking phases
 (parking_train, parking), its timeseries and landcover training phases
-(timeseries_train, landcover_train) and its acquisition phases (acquire,
-calibrate) run end to end on the CPU at a tiny
+(timeseries_train, landcover_train), its acquisition phases (acquire,
+calibrate) and its convergence phase run end to end on the CPU at a tiny
 size with narrow models, so the smoke run's control flow and checks are
 exercised before it reaches a card. On the
 CPU ``hann_stitch`` runs its plain version, whose calls are counted here
@@ -326,3 +326,48 @@ def test_h5_phase_on_cpu(smoke, monkeypatch, h5_files):
     assert fams["siamese"]["forget_bias_max_abs_err"] is None
     for name in ("convlstm", "lstm_autoencoder", "hybrid"):
         assert fams[name]["forget_bias_max_abs_err"] <= 2.4e-7
+
+
+def test_convergence_phase_on_cpu(smoke, monkeypatch):
+    """convergence: the four twins through main(argv) at tiny sizes with
+    narrow models (U-Net and Siamese 4/8, DeepLab stages 1/1/1/1): solar
+    and change scene evals one stitch each, the swath (200 x 96, k32 +
+    b16) one per band, every stitch held against its plain version."""
+    import functools
+
+    from satellite_computervision_tpu_torch import (
+        change_convergence,
+        parking_convergence,
+        solar_convergence,
+    )
+    from satellite_computervision_tpu_torch.models import DeepLabV3Plus
+
+    cs, _, work = smoke
+    def narrow(cls):  # the twins pass their full widths explicitly
+        return lambda *a, **kw: cls(*a, **{**kw, "filters": (4, 8), "factors": (2, 2)})
+
+    monkeypatch.setattr(solar_convergence, "UNet", narrow(UNet))
+    monkeypatch.setattr(change_convergence, "SiameseUNet", narrow(SiameseUNet))
+    monkeypatch.setattr(change_convergence, "K", 128)
+    monkeypatch.setattr(parking_convergence, "K", 192)
+    monkeypatch.setattr(parking_convergence, "DeepLabV3Plus", functools.partial(
+        DeepLabV3Plus, stage_sizes=(1, 1, 1, 1), aspp_features=16))
+    tiny = ["--epochs", "1", "--batch-size", "2"]
+    sizes = dict(
+        solar=["--train-size", "4", "--eval-size", "2", "--tile", "128"] + tiny,
+        change=["--train-size", "4", "--eval-size", "2"] + tiny,
+        parking_export=["--model", "deeplab", "--train-size", "2", "--eval-size", "2"] + tiny,
+        parking_warm=["--model", "deeplab", "--train-size", "2", "--eval-size", "2"] + tiny,
+        swath=dict(height=200, width=96, kernel=32, buffer=16,
+                   flags=["--filters", "4", "8", "--batch", "4"]),
+    )
+    fields, counts = cs.convergence_phase(torch, pre, stitch, work, device="cpu", sizes=sizes)
+    # 7 chip rows in bands of 2 + 16 rows advancing 1: 7 bands
+    assert counts == {"hann_stitch": 1 + 1 + 7, "fused_preprocess": 0}
+    assert [fields[n]["launches"]["hann_stitch"] for n in (
+        "solar", "change", "parking_export", "parking_warm", "swath")] == [1, 1, 0, 0, 7]
+    assert set(fields["solar"]["scene_eval_iou"]) == {"chips", "hann", "whole"}
+    assert set(fields["change"]["scene_eval_iou"]) == {"hann", "whole"}
+    assert fields["stitch"]["calls"] == 9 and fields["stitch"]["max_abs_err"] == 0.0
+    assert fields["swath"]["summary"]["hann_stitch_launches"] == 7  # counted as launches here
+    assert fields["parking_export"]["records"][0]["warm_start"] is False

@@ -32,6 +32,7 @@ from satellite_computervision_tpu_torch.models import UNet, flax_to_torch
 from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
 from satellite_computervision_tpu_torch.train.config import SOLAR_CONFIG
 from test_torch_evaluate import _shaped_state
+from test_torch_deeplab import two_torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODEL = dict(n_classes=1, filters=(4, 8), factors=(2, 2), head="sigmoid",

@@ -27,6 +27,7 @@ from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 from satellite_computervision_tpu_torch.train import flax_msgpack
 from satellite_computervision_tpu_torch.train.checkpoint import read_flax_checkpoint
 from satellite_computervision_tpu_torch.train.config import SOLAR_CONFIG
+from test_torch_deeplab import two_torch_threads  # noqa: F401
 
 ENGINE = dict(kernel=32, buffer=32, batch_size=4, blend="hann")  # 64² chips: S2D x 2^5
 

@@ -29,6 +29,7 @@ from satellite_computervision_tpu_torch.train.trainer import (
     create_train_state,
     make_train_step,
 )
+from test_torch_deeplab import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
