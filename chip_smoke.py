@@ -19,7 +19,9 @@ line):
    in shared memory: the kernel's streamed route; ``hann_stitch`` also at
    the swath's band shapes, the culled chips' predictions zero, and at
    ``parallel.spatial``'s band over the slice scene: 24 x 640² with a
-   phantom chip row each side and the whole grid's row weights, timed).
+   phantom chip row each side and the whole grid's row weights, timed; and
+   landcover's scene eval, 16 x 384² x 8 softmax channels into a 1280² x 8
+   canvas, timed).
    ``ms``,
    ``plain_ms``
    and ``library_ms`` are on one clock: CUDA events around back-to-back
@@ -205,7 +207,21 @@ line):
    keys, losses finite, the kernels' launches per run (``hann_stitch``
    once per scene eval and once per swath band, ``fused_preprocess``
    never) and every stitch of the runs bit-equal to its plain version.
-19. ``profile``: one warm scene, three warm train steps, five warm
+19. ``convergence_families``: the five training-only families' twins
+   through their ``main`` at full model width, cut to one epoch of a few
+   batches — ``landcover_convergence --loss wcce --scene-eval`` (the
+   multiclass U-Net 32…256, 16 and 8 chips of 256², batch 8; the best
+   state served over the 1024² scene in hann and whole modes, 8 softmax
+   channels), ``hierarchical_convergence`` (16 and 8 chips of 128² with a
+   6-step series), ``hybrid_convergence`` (16 and 8 of 96²),
+   ``lstm_ae_convergence`` and ``timeseries_forecast_convergence`` (32
+   and 16 series of 64², batch 16) — and the three demos
+   (``change_detection``, ``landcover_multiclass``, ``timeseries_forecast``)
+   at their defaults; records against the JAX scripts' keys, losses
+   finite, ``hann_stitch`` once (landcover's hann mode) and never
+   elsewhere, that stitch of 8 channels bit-equal to its plain version,
+   each demo's last line ``OK``.
+20. ``profile``: one warm scene, three warm train steps, five warm
    ``make_preprocess_fn`` calls, three warm change train steps, one warm
    change pair, one warm parking scene and three warm DeepLab train steps
    under ``torch.profiler``: device time by kernel, host time by op and
@@ -3089,6 +3105,139 @@ def convergence_phase(torch, pre, stitch, work, device="cuda", sizes=CONVERGENCE
     return fields, counts
 
 
+# the training-only families' twins (examples/landcover_convergence.py,
+# hierarchical_convergence.py, hybrid_convergence.py, lstm_ae_convergence.py,
+# timeseries_forecast_convergence.py): the JAX scripts' record keys
+_SIX = ("water", "tree", "grass", "crop", "impervious", "wetland")
+_LANDCOVER8 = ("water", "tree", "grass", "barren", "impervious", "road", "crop", "wetland")
+FAMILY_KEYS = dict(
+    landcover={"epoch", "train_loss", "eval_loss", "iou", "mean_iou", "accuracy", "secs",
+               "loss_name"} | {f"iou_{c}" for c in _LANDCOVER8},
+    hierarchical={"epoch", "train_loss", "eval_loss", "iou", "mean_iou", "accuracy", "secs",
+                  "acnn_mean_iou", "acnn_iou_crop", "acnn_iou_grass", "sub_mean_iou"}
+    | {f"iou_{c}" for c in _SIX},
+    hybrid={"epoch", "train_loss", "eval_loss", "iou", "mean_iou", "accuracy", "secs"}
+    | {f"iou_{c}" for c in _SIX},
+    lstm_ae={"epoch", "train_loss", "forecast_mse", "reconstruction_mse", "persistence_mse",
+             "skill_vs_persistence", "secs"},
+    timeseries={"epoch", "train_loss", "eval_mse", "persistence_mse", "skill_vs_persistence",
+                "secs"},
+)
+# each record's losses (all finite)
+FAMILY_LOSSES = dict(landcover=("train_loss", "eval_loss"),
+                     hierarchical=("train_loss", "eval_loss"),
+                     hybrid=("train_loss", "eval_loss"),
+                     lstm_ae=("train_loss", "forecast_mse", "reconstruction_mse"),
+                     timeseries=("train_loss", "eval_mse"))
+# the rehearsal: one epoch of a few batches at each script's batch size;
+# the demos at their defaults
+FAMILY_SIZES = dict(
+    landcover=["--loss", "wcce", "--train-size", "16", "--eval-size", "8", "--epochs", "1"],
+    hierarchical=["--train-size", "16", "--eval-size", "8", "--epochs", "1"],
+    hybrid=["--train-size", "16", "--eval-size", "8", "--epochs", "1"],
+    lstm_ae=["--train-size", "32", "--eval-size", "16", "--epochs", "1"],
+    timeseries=["--train-size", "32", "--eval-size", "16", "--epochs", "1"],
+    demos=dict(change_detection=[], landcover_multiclass=[], timeseries_forecast=[]),
+)
+
+
+def convergence_families_phase(torch, pre, stitch, work, device="cuda", sizes=FAMILY_SIZES):
+    """The five training-only families' convergence twins through ``main``
+    at full model width, cut to a rehearsal (``sizes``): landcover (the
+    multiclass U-Net 32…256, ``--loss wcce --scene-eval``: the best state
+    served over the 1024² scene in hann and whole modes, 8 softmax
+    channels), hierarchical (ACNN 8 x 16 + LSTM 32, three heads),
+    hybrid (U-Net 32…256 with pools 3/2/2/2 at 96² + LSTM 32), LSTM-AE
+    (features 16) and timeseries (ConvLSTM 32); then the three demos
+    (change_detection, landcover_multiclass, timeseries_forecast) at their
+    defaults. Each run's records against the JAX scripts' keys, losses
+    finite, a summary line, the kernels' launches per run (one
+    ``hann_stitch`` for landcover's scene eval, none elsewhere), that stitch
+    of 8 channels bit-equal to its plain version, each demo's last line
+    ``OK``. Returns (fields, counts summed over the runs)."""
+    from satellite_computervision_tpu_torch import (
+        change_detection,
+        hierarchical_convergence,
+        hybrid_convergence,
+        landcover_convergence,
+        landcover_multiclass,
+        lstm_ae_convergence,
+        timeseries_forecast,
+        timeseries_forecast_convergence,
+    )
+    from satellite_computervision_tpu_torch.inference import tiles
+
+    root = os.path.join(work, "convergence_families")
+    os.makedirs(root, exist_ok=True)
+    for name in os.listdir(root):
+        if name.endswith(".jsonl"):
+            os.remove(os.path.join(root, name))
+    twins = dict(landcover=landcover_convergence, hierarchical=hierarchical_convergence,
+                 hybrid=hybrid_convergence, lstm_ae=lstm_ae_convergence,
+                 timeseries=timeseries_forecast_convergence)
+    demos = dict(change_detection=change_detection, landcover_multiclass=landcover_multiclass,
+                 timeseries_forecast=timeseries_forecast)
+    runs = [(name, module, sizes[name] + (["--scene-eval"] if name == "landcover" else [])
+             + ["--out", os.path.join(root, f"{name}.jsonl")], int(name == "landcover"))
+            for name, module in twins.items()]
+    runs += [(name, demos[name], argv, 0) for name, argv in sizes["demos"].items()]
+    recorded = []
+    real = tiles.hann_stitch
+
+    def recording(chips, *args, **kwargs):
+        recorded.append((chips.clone(), args, kwargs))
+        return real(chips, *args, **kwargs)
+
+    fields, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0}
+    tiles.hann_stitch = recording
+    try:
+        for name, module, argv, want in runs:
+            zero_counts(pre, stitch)
+            sync(device)
+            t0 = time.perf_counter()
+            _, out, _ = run_cli(module, argv + ["--device", device])
+            sync(device)
+            seconds = time.perf_counter() - t0
+            launches = kernel_counts(pre, stitch)
+            check(launches == {"hann_stitch": want, "fused_preprocess": 0},
+                  f"{name}: kernel launches {launches}, expected {want} hann_stitch")
+            for k, v in launches.items():
+                counts[k] += v
+            fields[name] = dict(seconds=seconds, launches=launches)
+            if name in demos:
+                check(out.splitlines()[-1] == "OK", f"{name}: the demo did not print OK")
+                fields[name]["report"] = out.splitlines()[-2]
+    finally:
+        tiles.hann_stitch = real
+
+    for name in twins:
+        lines = _jsonl(os.path.join(root, f"{name}.jsonl"))
+        epochs = [r for r in lines if "epoch" in r]
+        keys = FAMILY_KEYS[name] | {"chips_per_s", "synth_secs"}
+        check(epochs and all(keys <= set(r) for r in epochs),
+              f"{name}: records lack JAX's keys {sorted(keys - set(epochs[0]))}")
+        check(all(math.isfinite(r[k]) for r in epochs for k in FAMILY_LOSSES[name]),
+              f"{name}: a loss is not finite")
+        check("final" in lines[-1] and "config" in lines[-1], f"{name}: no summary line")
+        fields[name].update(records=epochs, final=lines[-1]["final"])
+    scene = [r["scene_eval_mean_iou"] for r in _jsonl(os.path.join(root, "landcover.jsonl"))
+             if "scene_eval_mean_iou" in r]
+    check(len(scene) == 1 and set(scene[0]) == {"hann", "whole"},
+          f"landcover: scene eval modes {scene}, expected hann and whole")
+    fields["landcover"]["scene_eval_mean_iou"] = scene[0]
+
+    # the served stitch of 8 channels on its plain version (not counted)
+    check(len(recorded) == counts["hann_stitch"] == 1, "the landcover stitch was not recorded")
+    chips, args, kwargs = recorded[0]
+    check(chips.shape[-1] == 8, f"landcover: stitched {chips.shape[-1]} channels, not 8")
+    err = (stitch.hann_stitch(chips, *args, **kwargs)
+           - stitch.hann_stitch_reference(chips, *args, **kwargs)).abs().max().item()
+    check(err == 0.0, f"landcover: hann_stitch of 8 channels is not bit-equal: {err}")
+    fields["stitch"] = dict(calls=len(recorded), max_abs_err=err, shape=list(chips.shape))
+    fields["seconds"] = sum(f["seconds"] for f in fields.values() if "seconds" in f)
+    return fields, counts
+
+
 def main():
     import torch
 
@@ -3161,14 +3310,17 @@ def main():
                                 timed=True, culled_rows=1, culled_last_rows=1,
                                 row_weights=band_row_weights(rows, rows, 0, kernel,
                                                              kernel + buffer))
+    # landcover's scene eval: the change geometry over a 1024² scene, 16
+    # chips of 384² with 8 softmax channels into a 1280² canvas
+    landcover_shape = stitch_case(torch, stitch, ck, cb, 4, 4, 8, gen, timed=True)
     emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases,
          change=change_shape, change_bands=change_bands, parking=parking_shape,
-         acquire=acquire_shape, spatial_band=spatial_shape)
+         acquire=acquire_shape, spatial_band=spatial_shape, landcover=landcover_shape)
     # the engine's route: the same products and adds in the same order, so
     # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
-    cases = [small, main_shape, change_shape, parking_shape, acquire_shape, spatial_shape] \
-        + band_cases + change_bands
+    cases = [small, main_shape, change_shape, parking_shape, acquire_shape, spatial_shape,
+             landcover_shape] + band_cases + change_bands
     check(all(c["max_abs_err"] == 0.0 for c in cases),
           "hann_stitch(apply_window=True) is not bit-equal to its plain version")
     check(all(c["weighted_max_abs_err"] <= tol for c in cases),
@@ -3370,6 +3522,14 @@ def main():
     emit("convergence", **convergence)
     serving_launches["convergence"] = conv_counts["hann_stitch"]
     new_paths["convergence"] = conv_counts
+
+    # ---- the training-only families' twins (landcover, hierarchical,
+    # hybrid, LSTM-AE, timeseries) and the three demos
+    torch.cuda.empty_cache()
+    families, family_counts = convergence_families_phase(torch, pre, stitch, work)
+    emit("convergence_families", **families)
+    serving_launches["convergence_families"] = family_counts["hann_stitch"]
+    new_paths["convergence_families"] = family_counts
     train_by_path = {"train": train_launches["fused_preprocess"],
                      **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
 
@@ -3407,7 +3567,10 @@ def main():
              "bound_by", "library_ms")},
          "spatial_band_shape": {k: spatial_shape[k] for k in (
              "shape", "canvas", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms", "library_device_ms")}},
+             "bound_by", "library_ms", "library_device_ms")},
+         "landcover_shape": {k: landcover_shape[k] for k in (
+             "shape", "canvas", "max_abs_err", "weighted_max_abs_err", "ms", "device_ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")}},
         {"name": "fused_preprocess", "route": "cuda",
          "source": "satellite_computervision_tpu_torch/csrc/fused_preprocess.cu",
          "replaces": "satellite_computervision_tpu/pallas/preprocess.py:135",

@@ -25,9 +25,18 @@ its ``main(argv)`` at the JAX record's configuration, or measures:
 - ``parking``: ``parking_convergence --model deeplab --epochs 1
   --export-backbone``, then ``--epochs 5 --torch-weights`` from that file;
   ``parking_unet``: ``--model unet`` at its defaults;
+- ``landcover_wcce``: ``landcover_convergence --loss wcce --scene-eval``
+  at its defaults (800/160 chips x 15 epochs, batch 8);
+  ``landcover_gen_dice`` and ``landcover_element``: ``--loss gen_dice``
+  with ``--gdl-counts batch`` and ``element`` (all three append to one
+  JSONL, as the JAX records do);
+- ``hierarchical``, ``hybrid``, ``lstm_ae``, ``timeseries``: the
+  families' twins at their defaults; ``demos``: the three short demos at
+  their defaults, each held to its own check;
 - ``step_rates``: each twin's warm train step on a batch already on the
   card (bfloat16 autocast), so the device's chips/s stands beside the
-  host's chip synthesis in the epoch records.
+  host's chip synthesis in the epoch records; for the training-only
+  families also the busy share and launches per step.
 
 JSONL records and checkpoints are written under ``build/convergence/``;
 the JSONL files, a log per run and ``results.json`` (one entry per run:
@@ -188,67 +197,138 @@ def swath_stages(torch, seed=0, device="cuda", **sizes):
     return out
 
 
+def _warm_step(torch, model, batch, step, chips):
+    """Warm train step ms (host clock, synchronized) and chips/s of
+    ``step`` on ``batch`` already on the card, with the host's seconds to
+    make one chip on one thread (``chips()`` makes the batch's chips)."""
+    import chip_smoke
+    from satellite_computervision_tpu_torch.train.trainer import create_train_state
+
+    state = create_train_state(model, 9e-4)
+    t0 = time.perf_counter()
+    n = len(chips())
+    synth_s = (time.perf_counter() - t0) / n
+    ms = chip_smoke.wall_ms(lambda: step(state, batch), iters=10)
+    med = chip_smoke.median(ms)
+    return dict(batch=n, step_ms=ms, step_ms_median=med, device_chips_per_s=n / (med / 1e3),
+                host_chip_ms_one_thread=synth_s * 1e3,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30), state
+
+
 def step_rates(torch):
     """Warm train step ms and chips/s of each twin's model and batch on a
-    batch already on the card (bfloat16 autocast, the twins' losses)."""
+    batch already on the card (bfloat16 autocast, the twins' losses); for
+    the training-only families also the device's busy share and launches
+    per step (``torch.profiler``)."""
     import chip_smoke
     from satellite_computervision_tpu_torch import (
         change_convergence,
+        hierarchical_convergence,
+        hybrid_convergence,
+        landcover_convergence,
+        lstm_ae_convergence,
         parking_convergence,
         solar_convergence,
+        timeseries_forecast_convergence,
     )
     from satellite_computervision_tpu_torch.models import UNet, losses
-    from satellite_computervision_tpu_torch.train.trainer import (
-        create_train_state,
-        make_train_step,
-    )
+    from satellite_computervision_tpu_torch.train.trainer import make_train_step
 
     dev = torch.device("cuda")
+    bf16 = torch.bfloat16
 
     def solar(s2d):
         return UNet(6, n_classes=1, head="sigmoid", threshold=0.9, bn_momentum=0.9,
                     space_to_depth=s2d)
 
+    def bce(pw):
+        return make_train_step(lambda t, p: losses.weighted_bce(t, p, pw, logits=True),
+                               compute_dtype=bf16)
+
+    def pair(f):
+        return f[0], f[1]
+
+    def nested(f):
+        return (f[0], f[1]), (f[2], f[3]) if len(f) == 4 else f[2]
+
+    lc, hi, hy = landcover_convergence, hierarchical_convergence, hybrid_convergence
+    ae, ts = lstm_ae_convergence, timeseries_forecast_convergence
+    # (name, model, make_chip, batch, step, batch packing, profiled)
     cases = [
-        ("solar", lambda: solar(False), solar_convergence.make_chip, 16, 2.0),
-        ("solar_s2d", lambda: solar(True), solar_convergence.make_chip, 16, 2.0),
+        ("solar", lambda: solar(False), solar_convergence.make_chip, 16, bce(2.0), pair, False),
+        ("solar_s2d", lambda: solar(True), solar_convergence.make_chip, 16, bce(2.0), pair,
+         False),
         ("change", lambda: change_convergence.StackedSiamese(0.5),
-         change_convergence.make_chip, 8, 4.0),
+         change_convergence.make_chip, 8, bce(4.0), pair, False),
         ("parking_deeplab", lambda: parking_convergence.build_model("deeplab", 0),
-         parking_convergence.make_chip, 16, 20.0),
+         parking_convergence.make_chip, 16, bce(20.0), pair, False),
         ("parking_unet", lambda: parking_convergence.build_model("unet", 0),
-         parking_convergence.make_chip, 16, 20.0),
+         parking_convergence.make_chip, 16, bce(20.0), pair, False),
+        ("landcover", lambda: lc.build_model(0), lc.make_chip, 8, make_train_step(
+            lc.make_loss("wcce"), pred_key="probs", num_classes=lc.NCLASS,
+            compute_dtype=bf16), pair, True),
+        ("hierarchical", lambda: hi.build_model(8, 16, 32, 0), hi.make_chip, 8,
+         make_train_step(hi.loss_fn, pred_key=None, num_classes=hi.NCLASS,
+                         compute_dtype=bf16), nested, True),
+        ("hybrid", lambda: hy.build_model(32, 0), hy.make_chip, 8, make_train_step(
+            hy.loss_fn, pred_key="probs", num_classes=hy.NCLASS, compute_dtype=bf16), nested,
+         True),
+        ("lstm_ae", lambda: ae.build_model(16, 0), ae.make_chip, 16, make_train_step(
+            ae.loss_fn, pred_key=None, num_classes=2, compute_dtype=bf16), nested, True),
+        ("timeseries", lambda: ts.build_model(32, 0), ts.make_chip, 16, make_train_step(
+            losses.masked_mse, num_classes=2, compute_dtype=bf16), pair, True),
     ]
     out = {}
-    for name, build, make_chip, batch, pw in cases:
-        model = build().to(dev)
-        xs, ys = zip(*(make_chip("train", i) for i in range(batch)))
-        x, y = torch.from_numpy(np.stack(xs)).to(dev), torch.from_numpy(np.stack(ys)).to(dev)
-        step = make_train_step(lambda t, p, pw=pw: losses.weighted_bce(t, p, pw, logits=True),
-                               compute_dtype=torch.bfloat16)
-        state = create_train_state(model, 9e-4)
-        t0 = time.perf_counter()
-        synth = [make_chip("train", i) for i in range(batch)]
-        synth_s = (time.perf_counter() - t0) / batch
-        del synth
-        ms = chip_smoke.wall_ms(lambda: step(state, (x, y)), iters=10)
-        med = chip_smoke.median(ms)
-        out[name] = dict(batch=batch, step_ms=ms, step_ms_median=med,
-                         device_chips_per_s=batch / (med / 1e3),
-                         host_chip_ms_one_thread=synth_s * 1e3,
-                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-        del model, state, x, y
+    for name, build, make_chip, batch, step, pack, profiled in cases:
+        def chips(make_chip=make_chip, batch=batch):
+            return [make_chip("train", i) for i in range(batch)]
+
+        fields = [torch.from_numpy(np.stack(z)).to(dev) for z in zip(*chips())]
+        x_y = pack(fields)
+        out[name], state = _warm_step(torch, build().to(dev), x_y, step, chips)
+        if profiled:
+            prof = chip_smoke.device_profile(torch, lambda: step(state, x_y), calls=3)
+            out[name].update(busy_share=prof["device_busy_share"],
+                             device_launches_per_step=prof["device_launches"] / 3)
+        del state, fields, x_y
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def demos():
+    """The three demos' ``main`` at their defaults: seconds and the line
+    before each one's ``OK``."""
+    from satellite_computervision_tpu_torch import (
+        change_detection,
+        landcover_multiclass,
+        timeseries_forecast,
+    )
+
+    out = {}
+    for module in (change_detection, landcover_multiclass, timeseries_forecast):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, seconds = run_main(module, [])
+        lines = buf.getvalue().splitlines()
+        print(buf.getvalue(), end="")
+        if lines[-1] != "OK":
+            raise RuntimeError(f"{module.__name__}: no OK")
+        out[module.__name__.rsplit(".", 1)[-1]] = dict(seconds=seconds, lines=lines[-8:])
     return out
 
 
 def runs(torch):
     from satellite_computervision_tpu_torch import (
         change_convergence,
+        hierarchical_convergence,
+        hybrid_convergence,
+        landcover_convergence,
+        lstm_ae_convergence,
         parking_convergence,
         solar_convergence,
         swath_codec_sweep,
+        timeseries_forecast_convergence,
     )
 
     bb = os.path.join(WORK, "backbone.pth")
@@ -277,6 +357,21 @@ def runs(torch):
         "parking_unet": lambda: run_main(parking_convergence, [
             "--model", "unet", "--out", _jsonl("parking_convergence_unet")]),
         "step_rates": lambda: timed(lambda: step_rates(torch)),
+        "landcover_wcce": lambda: run_main(landcover_convergence, [
+            "--loss", "wcce", "--scene-eval", "--out", _jsonl("landcover_convergence")]),
+        "landcover_gen_dice": lambda: run_main(landcover_convergence, [
+            "--loss", "gen_dice", "--gdl-counts", "batch",
+            "--out", _jsonl("landcover_convergence")]),
+        "landcover_element": lambda: run_main(landcover_convergence, [
+            "--loss", "gen_dice", "--gdl-counts", "element",
+            "--out", _jsonl("landcover_convergence")]),
+        "hierarchical": lambda: run_main(hierarchical_convergence, [
+            "--out", _jsonl("hierarchical_convergence")]),
+        "hybrid": lambda: run_main(hybrid_convergence, ["--out", _jsonl("hybrid_convergence")]),
+        "lstm_ae": lambda: run_main(lstm_ae_convergence, ["--out", _jsonl("lstm_ae_convergence")]),
+        "timeseries": lambda: run_main(timeseries_forecast_convergence, [
+            "--out", _jsonl("timeseries_forecast")]),
+        "demos": lambda: timed(demos),
     }
 
 

@@ -84,10 +84,13 @@ AMPS = np.array([0.00, 0.05, 0.08, 0.40, 0.00, 0.12], np.float32)
 
 def chip_batches(make_chip, split, n, batch, rng, shuffle=True, prefetch=2,
                  device="cuda", timing=None):
-    """Prefetched ``(x, y)`` device batches from a ``(split, index)`` chip
-    fn, in the JAX stream's order (the shuffle drawn from ``rng`` when the
-    stream starts; a last partial batch dropped). ``timing["synth_secs"]``,
-    when given, gathers the wall seconds spent making chips."""
+    """Prefetched device batches from a ``(split, index)`` chip fn, in the
+    JAX stream's order (the shuffle drawn from ``rng`` when the stream
+    starts; a last partial batch dropped). Each batch is a tuple with one
+    stacked tensor per item of the chips' tuples: ``(x, y)`` for a chip of
+    features and label, more for the multi-input harnesses.
+    ``timing["synth_secs"]``, when given, gathers the wall seconds spent
+    making chips."""
 
     def raw():
         order = np.arange(n)
@@ -97,15 +100,15 @@ def chip_batches(make_chip, split, n, batch, rng, shuffle=True, prefetch=2,
         with ThreadPoolExecutor(max(1, (os.cpu_count() or 1) - 2)) as pool:
             for i in range(0, n - batch + 1, batch):
                 t0 = time.perf_counter()
-                xs, ys = zip(*pool.map(lambda j: make_chip(split, int(j)),
+                fields = zip(*pool.map(lambda j: make_chip(split, int(j)),
                                        order[i : i + batch]))
-                item = {"x": np.stack(xs), "y": np.stack(ys)}
+                item = {str(f): np.stack(z) for f, z in enumerate(fields)}
                 if timing is not None:
                     timing["synth_secs"] += time.perf_counter() - t0
                 yield item
 
     for b in prefetch_to_device(raw(), size=prefetch, device=device):
-        yield b["x"], b["y"]
+        yield tuple(b.values())
 
 
 def binary_metrics(cm) -> dict:
@@ -135,6 +138,13 @@ def multiclass_metrics(cm, class_names=None) -> dict:
     }
     out.update({f"iou_{n}": float(v) for n, v in zip(names, iou)})
     return out
+
+
+def port_timings(steps, batch, train_secs, timing) -> dict:
+    """The port's two keys of an epoch record: training chips over the
+    training loop's wall seconds, and the seconds spent making chips."""
+    return {"chips_per_s": round(steps * batch / max(train_secs, 1e-9), 1),
+            "synth_secs": round(timing["synth_secs"], 1)}
 
 
 def autocast(device: torch.device, compute_dtype):
@@ -218,8 +228,7 @@ def run_convergence(
             "eval_loss": eloss / max(esteps, 1),
             **{k: round(float(v), 4) for k, v in m.items()},
             "secs": round(time.time() - t0, 1),
-            "chips_per_s": round(steps * args.batch_size / max(train_secs, 1e-9), 1),
-            "synth_secs": round(timing["synth_secs"], 1),
+            **port_timings(steps, args.batch_size, train_secs, timing),
         }
         if extra_record:
             rec.update(extra_record)

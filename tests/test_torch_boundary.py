@@ -12,13 +12,20 @@ import pytest
 import torch
 
 import satellite_computervision_tpu_torch as port
-from satellite_computervision_tpu_torch import change_convergence
+from satellite_computervision_tpu_torch import change_convergence, change_detection
 from satellite_computervision_tpu_torch import change_detection_end_to_end as change_twin
 from satellite_computervision_tpu_torch import multistate_sweep as sweep_twin
 from satellite_computervision_tpu_torch import (
+    hierarchical_convergence,
+    hybrid_convergence,
+    landcover_convergence,
+    landcover_multiclass,
+    lstm_ae_convergence,
     parking_convergence,
     solar_convergence,
     swath_codec_sweep,
+    timeseries_forecast,
+    timeseries_forecast_convergence,
 )
 from satellite_computervision_tpu_torch import predict as cli
 from satellite_computervision_tpu_torch._device import resolve_device
@@ -113,9 +120,17 @@ def test_batch_prediction_defaults_to_cuda(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("twin", [change_twin, sweep_twin, solar_convergence, swath_codec_sweep,
-                                  change_convergence, parking_convergence],
+                                  change_convergence, parking_convergence,
+                                  landcover_convergence, hierarchical_convergence,
+                                  hybrid_convergence, lstm_ae_convergence,
+                                  timeseries_forecast_convergence, change_detection,
+                                  landcover_multiclass, timeseries_forecast],
                          ids=["change", "multistate", "solar_convergence", "swath_codec_sweep",
-                              "change_convergence", "parking_convergence"])
+                              "change_convergence", "parking_convergence",
+                              "landcover_convergence", "hierarchical_convergence",
+                              "hybrid_convergence", "lstm_ae_convergence",
+                              "timeseries_forecast_convergence", "change_detection",
+                              "landcover_multiclass", "timeseries_forecast"])
 def test_twins_default_to_cuda(no_cuda, twin):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         twin.main([])
@@ -149,7 +164,10 @@ def test_new_modules_are_covered():
                  "train.keras_export", "export", "ops.chips", "data.matching", "testing",
                  "utils", "utils.profiling", "utils.logging", "utils.viz", "compat",
                  "convergence_common", "solar_convergence", "swath_codec_sweep",
-                 "change_convergence", "parking_convergence"):
+                 "change_convergence", "parking_convergence", "landcover_convergence",
+                 "hierarchical_convergence", "hybrid_convergence", "lstm_ae_convergence",
+                 "timeseries_forecast_convergence", "change_detection",
+                 "landcover_multiclass", "timeseries_forecast"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES
 
 

@@ -371,3 +371,55 @@ def test_convergence_phase_on_cpu(smoke, monkeypatch):
     assert fields["stitch"]["calls"] == 9 and fields["stitch"]["max_abs_err"] == 0.0
     assert fields["swath"]["summary"]["hann_stitch_launches"] == 7  # counted as launches here
     assert fields["parking_export"]["records"][0]["warm_start"] is False
+
+
+def test_convergence_families_phase_on_cpu(smoke, monkeypatch):
+    """convergence_families: the five training-only twins through
+    main(argv) at tiny sizes with narrow models (landcover's U-Net 4/8 on
+    128² chips, the hierarchical ACNN 2 x 4 + LSTM 4, the hybrid 4/4/8/8 on
+    48², the ConvLSTM families at 4 features on 32²) and the change demo at
+    its defaults: landcover's scene eval one 8-channel stitch held against
+    its plain version, no stitch elsewhere, the records' keys the JAX
+    scripts'."""
+    from satellite_computervision_tpu_torch import (
+        hierarchical_convergence,
+        hybrid_convergence,
+        landcover_convergence,
+        lstm_ae_convergence,
+        timeseries_forecast_convergence,
+    )
+    from satellite_computervision_tpu_torch.models import HybridUNetLSTM
+
+    cs, _, work = smoke
+    monkeypatch.setattr(landcover_convergence, "build_model", lambda seed: UNet(
+        4, n_classes=8, filters=(4, 8), factors=(2, 2), head="softmax"))
+    monkeypatch.setattr(hybrid_convergence, "build_model", lambda lstm_features, seed:
+                        HybridUNetLSTM(4, 4, 6, filters=(4, 4, 8, 8),
+                                       lstm_features=lstm_features))
+    for module, sides in ((landcover_convergence, dict(K=128)),
+                          (hierarchical_convergence, dict(K=64)),
+                          (hybrid_convergence, dict(K=48, KS=16)),
+                          (lstm_ae_convergence, dict(K=32)),
+                          (timeseries_forecast_convergence, dict(K=32))):
+        for name, value in sides.items():
+            monkeypatch.setattr(module, name, value)
+    tiny = ["--train-size", "4", "--eval-size", "2", "--epochs", "1", "--batch-size", "2"]
+    sizes = dict(landcover=["--loss", "wcce"] + tiny,
+                 hierarchical=tiny + ["--n-blocks", "2", "--features", "4",
+                                      "--lstm-features", "4"],
+                 hybrid=tiny + ["--lstm-features", "4"],
+                 lstm_ae=tiny + ["--features", "4"],
+                 timeseries=tiny + ["--features", "4"],
+                 demos=dict(change_detection=[]))
+    fields, counts = cs.convergence_families_phase(torch, pre, stitch, work, device="cpu",
+                                                   sizes=sizes)
+    assert counts == {"hann_stitch": 1, "fused_preprocess": 0}
+    assert [fields[n]["launches"]["hann_stitch"] for n in (
+        "landcover", "hierarchical", "hybrid", "lstm_ae", "timeseries",
+        "change_detection")] == [1, 0, 0, 0, 0, 0]
+    assert set(fields["landcover"]["scene_eval_mean_iou"]) == {"hann", "whole"}
+    assert fields["stitch"] == {"calls": 1, "max_abs_err": 0.0, "shape": [16, 256, 256, 8]}
+    assert fields["change_detection"]["report"].startswith("change-detection eval:")
+    for name in ("landcover", "hierarchical", "hybrid", "lstm_ae", "timeseries"):
+        assert [r["epoch"] for r in fields[name]["records"]] == [0]
+        assert fields[name]["final"]["epoch"] == 0
