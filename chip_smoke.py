@@ -221,7 +221,15 @@ line):
    finite, ``hann_stitch`` once (landcover's hann mode) and never
    elsewhere, that stitch of 8 channels bit-equal to its plain version,
    each demo's last line ``OK``.
-20. ``profile``: one warm scene, three warm train steps, five warm
+20. ``bench``: the twin of ``bench.py`` through its default path
+   (``bench.run``) in-process at its own shapes (six 1920² x 4 uint16
+   scenes, k256 + b128 batch 12 in the reference grid, the tuned k512 +
+   b128 batch 16 hann grid, the S2D whole scene, the solar step at batch
+   16 and 64 over 256² x 6) with fewer repeats (``BENCH_REPEATS``): its
+   own JSON line, every default-path field finite, no ``skipped`` or
+   ``errors``; ``hann_stitch`` launched at 16 x 640² (tuned) and 64 x 384²
+   (the k256 hann grid), one of each bit-equal to its plain version.
+21. ``profile``: one warm scene, three warm train steps, five warm
    ``make_preprocess_fn`` calls, three warm change train steps, one warm
    change pair, one warm parking scene and three warm DeepLab train steps
    under ``torch.profiler``: device time by kernel, host time by op and
@@ -272,6 +280,8 @@ LANDCOVER_SERIES_SIDE, LANDCOVER_HYBRID_SIDE = 32, 240
 # acquire: raw Sentinel-2 items per period (4096² L1C tiles), and the
 # top-left square of every item and composite held against the CPU
 ACQUIRE_ITEMS, ACQUIRE_SIDE, ACQUIRE_CROP = 6, 4096, 512
+# the bench twin's repeats in the smoke run (its shapes are not cut)
+BENCH_REPEATS = dict(pairs=1, sweeps=1, timed=2, ref=2, syncloop=1, train=2, codec=1, stitch=20)
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -315,22 +325,13 @@ def cuda_ms(fn, iters=200, warmup=20):
 def device_ms(fn, name=None, calls=50):
     """Mean device milliseconds per call of ``fn`` under torch.profiler:
     of the kernels whose name holds ``name``, or of every device event
-    (kernels, copies, memsets) when ``name`` is None."""
+    (kernels, copies, memsets) when ``name`` is None; "not measured" where
+    the profiler's events do not add up (``bench.device_ms``)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and (name is None or name in e.key)]
-    total = sum(e.device_time_total for e in events) / 1e3
-    return total / calls if events else "not measured"
+    from satellite_computervision_tpu_torch.bench import device_ms as profiled_ms
+
+    return profiled_ms(fn, torch.device("cuda"), calls, name)
 
 
 def sync(device="cuda"):
@@ -358,21 +359,6 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def fold_blend(preds, k, rows, cols, window, inv_w):
-    """Library yardstick for hann_stitch on the engine's route: the window
-    multiply, ``F.fold`` to overlap-add the chips, then the constant
-    normalizer. Timed only; the port never calls it."""
-    import torch.nn.functional as F
-
-    weighted = preds * window[..., None]
-    n, side, _, c = weighted.shape
-    h, w = (rows - 1) * k + side, (cols - 1) * k + side
-    folded = F.fold(weighted.permute(3, 1, 2, 0).reshape(1, c * side * side, n),
-                    output_size=(h, w), kernel_size=side, stride=k)
-    canvas = F.pad(folded, (0, (cols + 1) * k - w, 0, (rows + 1) * k - h))
-    return canvas[0].permute(1, 2, 0) * inv_w[..., None]
-
-
 def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed, culled_rows=0,
                 culled_last_rows=0, row_weights=None):
     """hann_stitch on the card against its plain version: the engine's
@@ -382,6 +368,8 @@ def stitch_case(torch, stitch, k, buf, rows, cols, c_out, gen, timed, culled_row
     are zero, as culled chips and a spatial band's phantom rows reach the
     stitch. ``row_weights`` (numpy, ((rows+1)*k,)) replaces the grid's row
     sums in the normalizer, as ``parallel/spatial.py`` passes them."""
+    from satellite_computervision_tpu_torch.bench import fold_blend
+
     side = k + buf
     preds = torch.rand((rows * cols, side, side, c_out), generator=gen)
     preds[: culled_rows * cols] = 0.0
@@ -3238,6 +3226,69 @@ def convergence_families_phase(torch, pre, stitch, work, device="cuda", sizes=FA
     return fields, counts
 
 
+def bench_phase(torch, pre, stitch, device="cuda", repeats=BENCH_REPEATS):
+    """The twin of ``bench.py``: its default path (``bench.run``) in-process
+    at its own shapes with fewer repeats (``repeats``). Its JSON line is
+    printed as it stands; every default-path field must be present and
+    finite, on the card the stitch's and its ``F.fold`` route's event times
+    (``hann_stitch_ms``, ``hann_stitch_fold_ms``) too, with no ``skipped``
+    or ``errors`` and ``value`` > 0; the profiler's device times beside
+    them are kept as they come (a number, or "not measured"). The kernels'
+    launches are counted over the run: ``hann_stitch`` from the tuned grid,
+    the k256 hann grid and the stitch timed alone, ``fused_preprocess``
+    never. The engine's stitches must come at exactly the two grids'
+    shapes, and one of each is held bit-equal to its plain version (not
+    counted). Returns (fields, counts)."""
+    from satellite_computervision_tpu_torch import bench
+    from satellite_computervision_tpu_torch.inference import tiles
+
+    stitched = {}
+    real = tiles.hann_stitch
+
+    def recording(chips, *args, **kwargs):
+        if tuple(chips.shape) not in stitched:
+            stitched[tuple(chips.shape)] = (chips.clone(), args, kwargs)
+        return real(chips, *args, **kwargs)
+
+    report = bench.Report()
+    zero_counts(pre, stitch)
+    tiles.hann_stitch = recording
+    t0 = time.perf_counter()
+    try:
+        bench.run(report, torch.device(device), time.monotonic() + 1200,
+                  bench.Repeats(**repeats))
+    finally:
+        tiles.hann_stitch = real
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts(pre, stitch)
+    report.emit()
+    result = report.fields
+    check("skipped" not in result and "errors" not in result,
+          f"bench: skipped {result.get('skipped')}, errors {result.get('errors')}")
+    fields = list(bench.DEFAULT_FIELDS)
+    if device == "cuda":
+        fields += ["hann_stitch_ms", "hann_stitch_fold_ms"]
+    bad = [k for k in fields
+           if not (isinstance(result.get(k), (int, float)) and math.isfinite(result[k]))]
+    check(not bad, f"bench: fields missing or not finite: {bad}")
+    check(result["value"] > 0, f"bench: value {result['value']}")
+    want = {(-(-bench.SCENE // k)) ** 2 for k in (bench.TUNED_KERNEL, bench.KERNEL)}
+    check({s[0] for s in stitched} == want and len(stitched) == 2,
+          f"bench: stitched {sorted(stitched)}, expected the tuned and the k{bench.KERNEL} grids")
+    check(counts["fused_preprocess"] == 0 and counts["hann_stitch"] > 0,
+          f"bench: kernel launches {counts}")
+    errs = []
+    for chips, args, kwargs in stitched.values():
+        errs.append((stitch.hann_stitch(chips, *args, **kwargs)
+                     - stitch.hann_stitch_reference(chips, *args, **kwargs)).abs().max().item())
+    check(max(errs) == 0.0, f"bench: hann_stitch is not bit-equal to its plain version: {errs}")
+    return dict(seconds=seconds, launches=counts, repeats=repeats,
+                stitch_shapes=sorted(list(s) for s in stitched), stitch_max_abs_err=max(errs),
+                stage_seconds=result["stage_seconds"],
+                **{k: result[k] for k in ("hann_stitch_device_ms", "hann_stitch_fold_device_ms")}
+                ), counts
+
+
 def main():
     import torch
 
@@ -3530,6 +3581,13 @@ def main():
     emit("convergence_families", **families)
     serving_launches["convergence_families"] = family_counts["hann_stitch"]
     new_paths["convergence_families"] = family_counts
+
+    # ---- the twin of bench.py: its default path at its shapes, fewer repeats
+    torch.cuda.empty_cache()
+    bench_fields, bench_counts = bench_phase(torch, pre, stitch)
+    emit("bench", **bench_fields)
+    serving_launches["bench"] = bench_counts["hann_stitch"]
+    new_paths["bench"] = bench_counts
     train_by_path = {"train": train_launches["fused_preprocess"],
                      **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
 

@@ -28,6 +28,7 @@ Port of ``satellite_computervision_tpu/inference/tiles.py``
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -136,17 +137,43 @@ class TiledInferenceEngine:
 
     @classmethod
     def from_model(cls, model: torch.nn.Module, output_key: str = "probs",
-                   fold_bn: bool = True, **kwargs):
+                   fold_bn: bool = True, geometry=None, tune_table=None, **kwargs):
         """Build an engine over a model's forward, moved to the engine's
         device and put in eval mode.
 
         For a ``models.UNet`` with live BatchNorm, ``fold_bn=True``
-        (default) serves the BN-folded model (models/fold.py)."""
+        (default) serves the BN-folded model (models/fold.py).
+
+        ``geometry`` picks the serving chip geometry:
+        - ``None`` (default): the explicit ``kernel``/``buffer`` kwargs;
+        - ``(kernel, buffer)``: set both directly;
+        - ``"tuned"``: the best row of the tune table at ``tune_table`` (an
+          ``inference.tune.save_tune_table`` file), its chip grid or
+          whole-scene mode, when every row was measured on the engine's
+          device; otherwise (another device's table, a JAX table, whose
+          rows name none, or no file) the explicit kwargs, so "tuned" is
+          safe to request unconditionally."""
         from satellite_computervision_tpu_torch.models import UNet, fold_unet
 
+        device = resolve_device(kwargs.get("device", "cuda"))
+        if geometry == "tuned":
+            if tune_table is not None and os.path.exists(tune_table):
+                from satellite_computervision_tpu_torch.inference.tune import (
+                    device_name,
+                    load_tune_table,
+                )
+
+                rows = load_tune_table(tune_table)
+                if rows and all(r.device == device_name(device) for r in rows):
+                    if rows[0].tile_mode == "whole":
+                        kwargs["tile_mode"] = "whole"
+                    else:
+                        kwargs["kernel"], kwargs["buffer"] = rows[0].kernel, rows[0].buffer
+        elif geometry is not None:
+            kwargs["kernel"], kwargs["buffer"] = geometry
         if fold_bn and isinstance(model, UNet) and not model.fold_bn:
             model = fold_unet(model)
-        model = model.to(resolve_device(kwargs.get("device", "cuda"))).eval()
+        model = model.to(device).eval()
         return cls(lambda chips: model(chips)[output_key], **kwargs)
 
     # ------------------------------------------------------------------

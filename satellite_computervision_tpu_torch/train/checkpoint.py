@@ -223,23 +223,32 @@ class CheckpointManager:
     """Keeps the ``best`` and ``latest`` training checkpoints under
     ``root``: ``backend="pt"`` one ``model.pt`` each (what ``predict`` and
     ``evaluate`` serve), ``backend="dcp"`` a ``torch.distributed.checkpoint``
-    directory each, written by every rank (:func:`save_checkpoint_dcp`)."""
+    directory each, written by every rank (:func:`save_checkpoint_dcp`).
+    :meth:`save` writes ``best`` and, with ``keep_latest`` (the default),
+    ``latest``; :meth:`save_latest` writes ``latest`` alone."""
 
-    def __init__(self, root: str, backend: str = "pt"):
+    def __init__(self, root: str, keep_latest: bool = True, backend: str = "pt"):
         if backend not in ("pt", "dcp"):
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.root = root
+        self.keep_latest = keep_latest
         self.backend = backend
         os.makedirs(root, exist_ok=True)
 
+    def _save(self, which: str, state, step: int, metrics: Optional[Dict[str, float]]):
+        if self.backend == "dcp":
+            save_checkpoint_dcp(os.path.join(self.root, which), state, metrics, step)
+        else:
+            save_checkpoint(self.root, state.model, {"step": int(step), "metrics": metrics or {}},
+                            which=which, optimizer=state.optimizer, step=step)
+
     def save(self, state, step: int, metrics: Optional[Dict[str, float]] = None):
-        meta = {"step": int(step), "metrics": metrics or {}}
-        for which in ("best", "latest"):
-            if self.backend == "dcp":
-                save_checkpoint_dcp(os.path.join(self.root, which), state, metrics, step)
-            else:
-                save_checkpoint(self.root, state.model, meta, which=which,
-                                optimizer=state.optimizer, step=step)
+        self._save("best", state, step, metrics)
+        if self.keep_latest:
+            self._save("latest", state, step, metrics)
+
+    def save_latest(self, state, step: int, metrics: Optional[Dict[str, float]] = None):
+        self._save("latest", state, step, metrics)
 
     def restore(self, state, which: str = "best"):
         """Load weights, BN statistics, optimizer state and step of

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import satellite_computervision_tpu_torch as port
-from satellite_computervision_tpu_torch import change_convergence, change_detection
+from satellite_computervision_tpu_torch import bench, change_convergence, change_detection
 from satellite_computervision_tpu_torch import change_detection_end_to_end as change_twin
 from satellite_computervision_tpu_torch import multistate_sweep as sweep_twin
 from satellite_computervision_tpu_torch import (
@@ -124,13 +124,13 @@ def test_batch_prediction_defaults_to_cuda(no_cuda, tmp_path):
                                   landcover_convergence, hierarchical_convergence,
                                   hybrid_convergence, lstm_ae_convergence,
                                   timeseries_forecast_convergence, change_detection,
-                                  landcover_multiclass, timeseries_forecast],
+                                  landcover_multiclass, timeseries_forecast, bench],
                          ids=["change", "multistate", "solar_convergence", "swath_codec_sweep",
                               "change_convergence", "parking_convergence",
                               "landcover_convergence", "hierarchical_convergence",
                               "hybrid_convergence", "lstm_ae_convergence",
                               "timeseries_forecast_convergence", "change_detection",
-                              "landcover_multiclass", "timeseries_forecast"])
+                              "landcover_multiclass", "timeseries_forecast", "bench"])
 def test_twins_default_to_cuda(no_cuda, twin):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         twin.main([])
@@ -167,7 +167,7 @@ def test_new_modules_are_covered():
                  "change_convergence", "parking_convergence", "landcover_convergence",
                  "hierarchical_convergence", "hybrid_convergence", "lstm_ae_convergence",
                  "timeseries_forecast_convergence", "change_detection",
-                 "landcover_multiclass", "timeseries_forecast"):
+                 "landcover_multiclass", "timeseries_forecast", "bench"):
         assert f"satellite_computervision_tpu_torch.{name}" in MODULES
 
 

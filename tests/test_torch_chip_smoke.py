@@ -423,3 +423,28 @@ def test_convergence_families_phase_on_cpu(smoke, monkeypatch):
     for name in ("landcover", "hierarchical", "hybrid", "lstm_ae", "timeseries"):
         assert [r["epoch"] for r in fields[name]["records"]] == [0]
         assert fields[name]["final"]["epoch"] == 0
+
+
+def test_bench_phase_on_cpu(smoke, monkeypatch, capsys):
+    """bench: the twin's default path through ``bench.run`` at a tiny size
+    (two 320² scenes, k64 + b32, the tuned grid k128, the U-Net 4/8, 32²
+    train tiles; a peak for "cpu" stands in for the card's): its line
+    printed, every default-path field finite, the engine's stitches at the
+    two grids' shapes (counted as launches here) and bit-equal."""
+    import json
+
+    from satellite_computervision_tpu_torch import bench
+
+    cs, _, _ = smoke
+    for name, value in dict(SCENE=320, KERNEL=64, BUFFER=32, N_SCENES=2, FILTERS=(4, 8),
+                            TUNED_KERNEL=128, TUNED_BATCH=4, TRAIN_TILE=32,
+                            TRAIN_BATCHES=(2, 4), CODEC_PLANE=(64, 128),
+                            PEAKS={"cpu": (1e12, 0.0)}).items():
+        monkeypatch.setattr(bench, name, value)
+    fields, counts = cs.bench_phase(torch, pre, stitch, device="cpu")
+    # the tuned grid: warm, 2 timed, the FLOP count; the k64 hann grid: warm, 2 timed
+    assert counts == {"hann_stitch": 7, "fused_preprocess": 0}
+    assert fields["stitch_shapes"] == [[9, 160, 160, 1], [25, 96, 96, 1]]
+    assert fields["stitch_max_abs_err"] == 0.0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert set(bench.DEFAULT_FIELDS) <= set(line) and line["value"] > 0

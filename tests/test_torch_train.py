@@ -8,6 +8,8 @@ momentum mapping); a 20-step Adam trajectory within rtol 1e-3, in the
 manner of tests/test_tf_parity.py:179; and Trainer.fit with the
 checkpoint manager."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -283,3 +285,30 @@ def test_trainer_fit_checkpoints_only_on_improvement_and_resumes(tmp_path, rng):
     assert fresh.best == result["mean_iou"]
     assert result["mean_iou"] == pytest.approx(meta["metrics"]["mean_iou"], rel=1e-6)
     assert (tmp_path / "ckpt" / "latest" / "model.pt").exists()
+
+
+@pytest.mark.parametrize("keep_latest", [True, False])
+def test_checkpoint_manager_keep_latest_and_save_latest_match_jax(tmp_path, rng, keep_latest):
+    """``CheckpointManager(keep_latest=...)`` and ``save_latest`` write the
+    same directories and restore the same step and metrics as the JAX
+    package's manager: ``save`` writes ``best`` (and ``latest`` with
+    ``keep_latest``), ``save_latest`` writes ``latest`` alone."""
+    from satellite_computervision_tpu.train.checkpoint import CheckpointManager as JaxManager
+
+    jmodel = JaxUNet(n_classes=1, filters=(4,), factors=(2,), head="sigmoid")
+    jstate = jax_create_train_state(jmodel, jax.random.key(0), jnp.zeros((1, 16, 16, 2)))
+    state = create_train_state(_toy(0))
+    managers = [JaxManager(str(tmp_path / "jax"), keep_latest=keep_latest),
+                CheckpointManager(str(tmp_path / "torch"), keep_latest=keep_latest)]
+    for manager, s in zip(managers, (jstate, state)):
+        manager.save(s, 3, {"mean_iou": 0.5})
+    want = ["best", "latest"] if keep_latest else ["best"]
+    assert [sorted(os.listdir(m.root)) for m in managers] == [want, want]
+    for manager, s in zip(managers, (jstate, state)):
+        manager.save_latest(s, 5, {"mean_iou": 0.25})
+    assert [sorted(os.listdir(m.root)) for m in managers] == [["best", "latest"]] * 2
+    for manager, s in zip(managers, (jstate, state)):
+        assert manager.best_metrics() == {"mean_iou": 0.5}
+        for which, step, iou in (("best", 3, 0.5), ("latest", 5, 0.25)):
+            _, meta = manager.restore(s, which)
+            assert (meta["step"], meta["metrics"]) == (step, {"mean_iou": iou})

@@ -209,3 +209,42 @@ def test_predict_scene_tune_writes_and_reads_the_table(tmp_path, rng, capsys):
     cli.main(base + ["--kernel", "32", "--buffer", "32", "--output", str(tmp_path / "f.tif")])
     text = capsys.readouterr().out
     assert "serving geometry: k32+b32" in text and "(flags)" in text
+
+
+@pytest.mark.parametrize("case", ["kwargs", "pair", "tuned_grid", "tuned_whole", "tuned_missing"])
+def test_from_model_geometry_matches_jax(tmp_path, case):
+    """``TiledInferenceEngine.from_model(geometry=..., tune_table=...)``
+    serves the geometry the JAX engine's ``from_model`` serves: the
+    explicit kwargs, a ``(kernel, buffer)`` pair, the best row of a tune
+    table (chip grid or whole scene), the kwargs when the file is missing.
+    The JAX table and the port's hold the same rows, the port's measured on
+    this device ("cpu")."""
+    from satellite_computervision_tpu.inference import TiledInferenceEngine as JaxEngine
+
+    best = ("whole", 96, 0) if case == "tuned_whole" else ("chips", 64, 32)
+    rows = [dict(kernel=best[1], buffer=best[2], tile_mode=best[0], ms=1.0),
+            dict(kernel=128, buffer=64, tile_mode="chips", ms=2.0)]
+    jax_table, table = str(tmp_path / "tune.json"), str(tmp_path / "tune_torch.json")
+    if case != "tuned_missing":
+        jtune.save_tune_table(jax_table, [jtune.GeometryTiming(**r) for r in rows])
+        save_tune_table(table, [GeometryTiming(**r, device="cpu") for r in rows])
+    geometry = {"kwargs": None, "pair": (32, 16)}.get(case, "tuned")
+    kw = dict(kernel=16, buffer=8, batch_size=4)
+    want = JaxEngine.from_model(lambda x: x, {}, geometry=geometry, tune_table=jax_table, **kw)
+    got = TiledInferenceEngine.from_model(torch.nn.Identity(), device="cpu", geometry=geometry,
+                                          tune_table=table, **kw)
+    assert (got.kernel, got.buffer, got.tile_mode) == (want.kernel, want.buffer, want.tile_mode)
+    assert (got.kernel, got.buffer, got.tile_mode) == {
+        "kwargs": (16, 8, "chips"), "pair": (32, 16, "chips"), "tuned_grid": (64, 32, "chips"),
+        "tuned_whole": (16, 8, "whole"), "tuned_missing": (16, 8, "chips")}[case]
+
+
+@pytest.mark.parametrize("device", [None, "NVIDIA H100 80GB HBM3"], ids=["jax_table", "other"])
+def test_from_model_ignores_a_table_of_another_device(tmp_path, device):
+    """A table whose rows name another device (or none: a JAX table) does
+    not pick this device's geometry: the kwargs serve, as in the CLI."""
+    table = str(tmp_path / "tune_torch.json")
+    save_tune_table(table, [GeometryTiming(64, 32, "chips", 1.0, device=device)])
+    got = TiledInferenceEngine.from_model(torch.nn.Identity(), device="cpu", geometry="tuned",
+                                          tune_table=table, kernel=16, buffer=8)
+    assert (got.kernel, got.buffer, got.tile_mode) == (16, 8, "chips")
