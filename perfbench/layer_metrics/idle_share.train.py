@@ -1,0 +1,10 @@
+"""idle_share.train: the share of the traced training window in which no
+kernel ran on the device."""
+
+from perfbench import tracing
+
+
+def read(table, data):
+    if "step_flops" not in data:
+        return None
+    return 100.0 * (1.0 - tracing.busy_s(table, ("kernel",)) / tracing.window_s(table))
