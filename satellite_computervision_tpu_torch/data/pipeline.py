@@ -8,6 +8,12 @@ pinned memory on a side CUDA stream while the previous step runs; the
 numeric preprocessing (:func:`make_preprocess_fn`) runs on the device on
 whole batches.
 
+Spans (``utils.profiling.span``, recorded only while a ``torch.profiler``
+session runs), each with the batch's sequence number ``batch``:
+``train.batch`` (shuffle and stack) and ``train.stage`` (pinned copies,
+with their ``bytes``) on the prefetch thread, ``train.batch_wait`` on the
+consumer's; the returned preprocess runs in ``train.preprocess``.
+
 ``make_preprocess_fn`` with per-chip, per-channel rescaling (``axes=(0,
 1)``, no ``moments``, no ``splits``) runs the hand-written CUDA
 ``fused_preprocess`` (kernels/preprocess.py) on ``[continuous bands ‖
@@ -17,6 +23,7 @@ in one kernel call per batch. Other settings run the plain ops.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import random
 import threading
@@ -33,6 +40,7 @@ from satellite_computervision_tpu_torch.kernels.preprocess import (
 from satellite_computervision_tpu_torch.ops.augment import aug_color, apply_morph
 from satellite_computervision_tpu_torch.ops.classes import one_hot as one_hot_encode
 from satellite_computervision_tpu_torch.ops.normalize import rescale_image
+from satellite_computervision_tpu_torch.utils.profiling import span
 
 
 class ChipDataset:
@@ -123,6 +131,10 @@ def make_preprocess_fn(
 
     def preprocess(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                    train: bool = True, draws=None):
+        with span("train.preprocess"):
+            return _preprocess(batch, generator, train, draws)
+
+    def _preprocess(batch, generator, train, draws):
         # staged batches may be float16 (TrainIterator stage_dtype); all
         # math runs in float32
         batch = {k: torch.as_tensor(v).to(device, non_blocking=True).float()
@@ -229,27 +241,36 @@ def prefetch_to_device(iterator, size: int = 2, device="cuda"):
         return out, event
 
     def worker():
+        it = iter(iterator)
         try:
-            for item in iterator:
-                q.put(stage(item))
+            for n in itertools.count():
+                with span("train.batch", batch=n):
+                    item = next(it, end)
+                if item is end:
+                    break
+                n_bytes = sum(getattr(v, "nbytes", 0) for v in item.values())
+                with span("train.stage", batch=n, bytes=n_bytes):
+                    staged = stage(item)
+                q.put(staged)
         except BaseException as e:  # propagate, don't truncate
             q.put((err, e))
         else:
             q.put(end)
 
     threading.Thread(target=worker, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is end:
-            return
-        if item[0] is err:
-            raise item[1]
-        tensors, event = item
-        if event is not None:
-            current = torch.cuda.current_stream(device)
-            current.wait_event(event)
-            for t in tensors.values():
-                t.record_stream(current)
+    for n in itertools.count():
+        with span("train.batch_wait", batch=n):
+            item = q.get()
+            if item is end:
+                return
+            if item[0] is err:
+                raise item[1]
+            tensors, event = item
+            if event is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
+                for t in tensors.values():
+                    t.record_stream(current)
         yield tensors
 
 

@@ -24,10 +24,19 @@ Port of ``satellite_computervision_tpu/inference/tiles.py``
 - ``predict_scene_batch`` (one chip batch across a stack of scenes) and
   ``predict_scenes`` (scenes staged on a thread while the previous one
   computes, optionally read back on a third).
+
+Each stage is a span (``utils.profiling.span``, recorded only while a
+``torch.profiler`` session runs): ``serve.scene`` around one scene, with
+``serve.input``, ``serve.forward`` (one per chip batch: ``chips`` real,
+``padded`` repeated) and ``serve.stitch`` inside it; ``predict_scenes``
+adds ``serve.host_scene`` on the staging thread, ``serve.readback`` and
+``serve.result_ahead`` on the dispatch thread and ``serve.result_wait``
+on the caller's, each with the scene's sequence number ``scene``.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Callable, Optional
 
@@ -42,6 +51,7 @@ from satellite_computervision_tpu_torch.geo.geotiff import (
 )
 from satellite_computervision_tpu_torch.inference.staging import run_ahead, stage_to_device
 from satellite_computervision_tpu_torch.kernels.stitch import hann_stitch
+from satellite_computervision_tpu_torch.utils.profiling import span
 
 
 def _edge_pad(x: torch.Tensor, top: int, bottom: int, left: int, right: int):
@@ -240,13 +250,16 @@ class TiledInferenceEngine:
         does, and its predictions are returned too."""
         side, bsz = self.kernel + self.buffer, self.batch_size
         corners = list(corners)
-        corners += corners[-1:] * ((-len(corners)) % bsz)
+        n = len(corners)
+        corners += corners[-1:] * ((-n) % bsz)
         preds = []
         for g in range(0, len(corners), bsz):
-            chips = torch.stack(
-                [padded[i][y : y + side, x : x + side] for i, y, x in corners[g : g + bsz]]
-            )
-            preds.append(self.predict_fn(chips).float())
+            real = min(bsz, max(n - g, 0))
+            with span("serve.forward", chips=real, padded=bsz - real):
+                chips = torch.stack(
+                    [padded[i][y : y + side, x : x + side] for i, y, x in corners[g : g + bsz]]
+                )
+                preds.append(self.predict_fn(chips).float())
         return torch.cat(preds)
 
     def _stitch(self, preds, h, w, rows, cols, prepadded=False):
@@ -291,7 +304,10 @@ class TiledInferenceEngine:
             rows, cols, _, _ = self._grid_geometry(h, w, prepadded=True)
             h, w = rows * self.kernel, cols * self.kernel
         half = self.buffer // 2
-        pred = self.predict_fn(self._input(scene, prepadded)[None])[0].float()
+        with span("serve.input"):
+            x = self._input(scene, prepadded)
+        with span("serve.forward", chips=1, padded=0):
+            pred = self.predict_fn(x[None])[0].float()
         return self._finish(pred[half : half + h, half : half + w])
 
     def _run(self, scene, prepadded=False, cull=False, valid_chips=None) -> torch.Tensor:
@@ -318,7 +334,8 @@ class TiledInferenceEngine:
                 # no forward and no stitch: zeros in the output dtype
                 shape = (rows * k, cols * k, c_out) if prepadded else (h, w, c_out)
                 return self._finish(self._zeros(shape))
-        x = self._input(scene, prepadded)
+        with span("serve.input"):
+            x = self._input(scene, prepadded)
         if kept is None:
             preds = self._forward([x], corners)[:n]
         else:
@@ -332,7 +349,9 @@ class TiledInferenceEngine:
                                device=self.device)
             full.index_copy_(0, torch.from_numpy(slots).to(self.device), kept_preds)
             preds = full[:n]
-        return self._finish(self._stitch(preds, h, w, rows, cols, prepadded))
+        with span("serve.stitch"):
+            out = self._stitch(preds, h, w, rows, cols, prepadded)
+        return self._finish(out)
 
     # ------------------------------------------------------------------
     def chip_validity(self, scene, prepadded: bool = False) -> np.ndarray:
@@ -386,15 +405,20 @@ class TiledInferenceEngine:
         chips whose full window is nodata are culled before the forward;
         ``valid_chips`` optionally supplies a precomputed
         :meth:`chip_validity` mask."""
-        h = scene.shape[0]
-        if self.max_rows is not None and h > self.max_rows:
-            return self._predict_banded(scene)
-        if getattr(scene, "lazy", False):
-            # a file-backed scene without banding: nothing bounds memory
-            # anyway, so decode it
-            scene = np.asarray(scene)
-        with torch.inference_mode():
-            return self._run(scene, cull=self.nodata is not None, valid_chips=valid_chips)
+        return self._scene(scene, valid_chips, {})
+
+    def _scene(self, scene, valid_chips, ids: dict) -> torch.Tensor:
+        """:meth:`predict_scene` in a ``serve.scene`` span carrying ``ids``."""
+        with span("serve.scene", **ids):
+            h = scene.shape[0]
+            if self.max_rows is not None and h > self.max_rows:
+                return self._predict_banded(scene)
+            if getattr(scene, "lazy", False):
+                # a file-backed scene without banding: nothing bounds memory
+                # anyway, so decode it
+                scene = np.asarray(scene)
+            with torch.inference_mode():
+                return self._run(scene, cull=self.nodata is not None, valid_chips=valid_chips)
 
     def predict_scene_to_geotiff(self, scene, path, transform=None,
                                  crs: str = "", nodata_tag=None,
@@ -484,18 +508,20 @@ class TiledInferenceEngine:
         cull = self.nodata is not None and self.tile_mode == "chips"
 
         def host_scenes():
-            for s in scenes:
+            for n, s in enumerate(scenes):
                 if isinstance(s, torch.Tensor) and not cull:
                     yield s, None
                     continue
-                s = _host_array(s)
-                yield s, (self.chip_validity(s) if cull else None)
+                with span("serve.host_scene", scene=n):
+                    s = _host_array(s)
+                    valid = self.chip_validity(s) if cull else None
+                yield s, valid
 
         def compute():
             staged = stage_to_device(host_scenes(), prefetch, self.device)
             try:
-                for scene, valid in staged:
-                    yield self.predict_scene(scene, valid_chips=valid)
+                for n, (scene, valid) in enumerate(staged):
+                    yield self._scene(scene, valid, {"scene": n})
             finally:
                 staged.close()
 
@@ -506,22 +532,28 @@ class TiledInferenceEngine:
         def read_back():
             # the device-to-host copy goes into pinned memory without
             # waiting; the consumer waits on its event
-            for pred in compute():
-                if pred.device.type != "cuda":
-                    yield pred, None
-                    continue
-                host = torch.empty(pred.shape, dtype=pred.dtype, pin_memory=True)
-                host.copy_(pred, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
+            for n, pred in enumerate(compute()):
+                with span("serve.readback", scene=n, bytes=pred.nbytes):
+                    host, event = pred, None
+                    if pred.device.type == "cuda":
+                        host = torch.empty(pred.shape, dtype=pred.dtype, pin_memory=True)
+                        host.copy_(pred, non_blocking=True)
+                        event = torch.cuda.Event()
+                        event.record()
                 yield host, event
 
-        results = run_ahead(read_back(), prefetch, self.device)
+        results = run_ahead(read_back(), prefetch, self.device, ahead="serve.result_ahead")
         try:
-            for host, event in results:
-                if event is not None:
-                    event.synchronize()
-                yield _to_numpy(host)
+            for n in itertools.count():
+                with span("serve.result_wait", scene=n):
+                    got = next(results, None)
+                    if got is None:
+                        return
+                    host, event = got
+                    if event is not None:
+                        event.synchronize()
+                    out = _to_numpy(host)
+                yield out
         finally:
             results.close()
 
@@ -655,7 +687,7 @@ class TiledInferenceEngine:
 
             # one band staged ahead: peak residency 2 band inputs (max_rows
             # exists to bound device memory)
-            staged = stage_to_device(host_bands(), 1, self.device)
+            staged = stage_to_device(host_bands(), 1, self.device, key="band")
             try:
                 for (band, valid), (_, y, hi, extract, place) in zip(staged, jobs):
                     with torch.inference_mode():

@@ -11,7 +11,12 @@ Port of ``satellite_computervision_tpu/train/trainer.py``:
   before/after) passes ``x`` as a tuple or list of its positional inputs,
   and a tuple or list ``y`` (multi-head targets) gets no confusion matrix;
 - loss and confusion matrix are summed on the device: one host sync per
-  epoch or evaluation, not per step.
+  epoch or evaluation, not per step;
+- a train step is a ``train.step`` span (``utils.profiling.span``,
+  recorded only while a ``torch.profiler`` session runs; ``step`` is the
+  state's step count) holding ``train.forward`` (forward and loss),
+  ``train.backward``, ``train.optimizer`` (``zero_grad`` before the
+  backward, the update after it) and ``train.metrics``.
 
 The optimizer is ``torch.optim.Adam`` with optax's defaults (betas
 0.9/0.999, eps 1e-8 added outside the square root, no weight decay). On
@@ -29,6 +34,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from satellite_computervision_tpu_torch.models import metrics as metrics_lib
+from satellite_computervision_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -78,19 +84,28 @@ def make_train_step(loss_fn: Callable, pred_key: Optional[str] = "logits",
     ``out[pred_key]`` (the whole output dict when ``pred_key`` is None)."""
 
     def step(state: TrainState, batch):
+        with span("train.step", step=state.step):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         x, y = batch
         inputs = _inputs(x)
         model = state.model
         model.train()
-        with _autocast(inputs[0], compute_dtype):
-            out = model(*inputs)
-        preds = out[pred_key] if isinstance(out, dict) and pred_key else out
-        loss = loss_fn(y, preds)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        with span("train.forward"):
+            with _autocast(inputs[0], compute_dtype):
+                out = model(*inputs)
+            preds = out[pred_key] if isinstance(out, dict) and pred_key else out
+            loss = loss_fn(y, preds)
+        with span("train.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
-        cm = _confusion(out, y, class_from, num_classes, inputs[0].device)
+        with span("train.metrics"):
+            cm = _confusion(out, y, class_from, num_classes, inputs[0].device)
         return {"loss": loss.detach(), "cm": cm}
 
     return step
