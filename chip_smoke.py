@@ -21,7 +21,9 @@ line):
    ``parallel.spatial``'s band over the slice scene: 24 x 640² with a
    phantom chip row each side and the whole grid's row weights, timed; and
    landcover's scene eval, 16 x 384² x 8 softmax channels into a 1280² x 8
-   canvas, timed).
+   canvas, timed); the conv epilogues (``bias_relu_``, ``cat_affine_relu``)
+   bit-equal in bf16 at the solar sweep's 640² and 40² sites, timed beside
+   the unfused ops they replace (``library_ms``), and at a ragged shape.
    ``ms``,
    ``plain_ms``
    and ``library_ms`` are on one clock: CUDA events around back-to-back
@@ -470,6 +472,70 @@ def preprocess_case(torch, pre, shape, n_color, augment, gen, timed, hard=False)
     return out
 
 
+def epilogue_case(torch, ep, b, side, c_skip, c_up=None, timed=True):
+    """The conv-epilogue kernels on the card against their plain versions,
+    bf16 channels-last: ``bias_relu_`` on a (b, c_skip, side, side) conv
+    output, or with ``c_up`` ``cat_affine_relu`` of a skip and an up of
+    ``c_up`` channels; bit-equal. ``library_ms`` is the unfused op
+    sequence the served U-Net ran before (a conv's bias ``add_``, then
+    ``relu``; the up's ``add_``, ``cat``, mul, add, ``relu``)."""
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(side + c_skip)
+
+    def act(c):
+        x = torch.randn((b, c, side, side), generator=g, device=dev) * 3.0
+        return x.to(bf16).contiguous(memory_format=torch.channels_last)
+
+    def vec(n):
+        return torch.randn(n, generator=g, device=dev).to(bf16)
+
+    if c_up is None:
+        y, bias = act(c_skip), vec(c_skip)
+        want = ep.bias_relu_reference(y.clone(memory_format=torch.channels_last), bias)
+        got = ep.bias_relu_(y.clone(memory_format=torch.channels_last), bias)
+        args, name, n_bytes = (y, bias), "bias_relu_kernel", 2 * y.nbytes
+
+        def kernel():
+            ep.bias_relu_(y, bias)
+
+        def library():
+            torch.nn.functional.relu(y.add_(bias[:, None, None]))
+
+        def plain():
+            ep.bias_relu_reference(y, bias)
+    else:
+        skip, up, ub, sc, sh = act(c_skip), act(c_up), vec(c_up), vec(c_skip + c_up), vec(
+            c_skip + c_up)
+        args = (skip, up, ub, sc, sh)
+        want = ep.cat_affine_relu_reference(*args)
+        got = ep.cat_affine_relu(*args)
+        name, n_bytes = "cat_affine_relu_kernel", 2 * (skip.nbytes + up.nbytes)
+
+        def kernel():
+            ep.cat_affine_relu(*args)
+
+        def library():
+            x = torch.cat([skip, up.add_(ub[:, None, None])], dim=1)
+            torch.nn.functional.relu(x * sc[:, None, None] + sh[:, None, None])
+
+        def plain():
+            ep.cat_affine_relu_reference(*args)
+    torch.cuda.synchronize()
+    bits = torch.int16
+    out = dict(kernel=name, shape=[b, c_skip + (c_up or 0), side, side],
+               bit_equal=bool(torch.equal(got.contiguous().view(bits),
+                                          want.contiguous().view(bits))))
+    if timed:
+        out["ms"] = cuda_ms(kernel)
+        out["device_ms"] = device_ms(kernel, name)
+        out["plain_ms"] = cuda_ms(plain, iters=20, warmup=2)
+        out["library_ms"] = cuda_ms(library, iters=50, warmup=5)
+        out["library_device_ms"] = device_ms(library)
+        # each input element read once, each output element written once
+        out["bound_ms"], out["bound_by"] = bound(n_bytes, 0)
+    return out
+
+
 def randomize_(model, gen):
     """Seeded He-normal conv weights and non-trivial BatchNorm state."""
     import torch
@@ -518,6 +584,7 @@ def serve_through_cli(torch, predict, stitch, read_geotiff, ckpt, scene_path, ou
     """The ``predict`` CLI on the scene, with the kernels' launch counts
     set to 0 just before and read just after; checks the GeoTIFF."""
     stitch.hann_stitch.launches = 0
+    zero_epilogues()
     t0 = time.perf_counter()
     predict.main(["scene", "--input", scene_path, "--ckpt", ckpt, "--config", "solar",
                   "--fold-bn", "--device", "cuda", "--output", out_path,
@@ -525,7 +592,8 @@ def serve_through_cli(torch, predict, stitch, read_geotiff, ckpt, scene_path, ou
                   "4500000"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {"hann_stitch": stitch.hann_stitch.launches}
+    launches = {"hann_stitch": stitch.hann_stitch.launches,
+                "conv_epilogue": folded_epilogues("slice", "cuda")}
     check(all(launches.values()), f"a kernel of the serving path never launched: {launches}")
     pred, meta = read_geotiff(out_path)
     check(pred.shape == SCENE[:2] + (1,), f"output shape {pred.shape}")
@@ -614,6 +682,7 @@ def swath_phase(torch, predict, stitch, ckpt, work, shape, edge_rows, edge_cols,
 
     out = os.path.join(work, "swath_pred.tif")
     stitch.hann_stitch.launches = 0
+    zero_epilogues()
     stitch._device_axis_weights.cache_clear()
     _, text, cli_s = run_cli(predict, [
         "scene", "--input", src, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
@@ -622,6 +691,7 @@ def swath_phase(torch, predict, stitch, ckpt, work, shape, edge_rows, edge_cols,
     if device == "cuda":
         torch.cuda.synchronize()
     launches = stitch.hann_stitch.launches
+    epilogues = folded_epilogues("swath", device)
     weights_cache = stitch._device_axis_weights.cache_info()
     check(launches == kept_bands,
           f"hann_stitch launched {launches} times for {kept_bands} bands with a kept chip")
@@ -700,7 +770,8 @@ def swath_phase(torch, predict, stitch, ckpt, work, shape, edge_rows, edge_cols,
         scene=list(shape), nodata_rows=edge_rows, nodata_cols=edge_cols, max_rows=max_rows,
         geometry=list(geometry), bands=len(bands), band_chip_rows=bands,
         bands_with_kept_chip=kept_bands, kept_chips=int(valid.sum()), total_chips=valid.size,
-        launches=launches, axis_weight_cache=weights_cache._asdict(),
+        launches=launches, epilogue_launches=epilogues,
+        axis_weight_cache=weights_cache._asdict(),
         input_write_seconds=write_s, cli_seconds=cli_s, cli_mpix_per_s=mpix / cli_s,
         output_dtype=str(res.dtype), output_shape=list(pred.shape), output_max=int(pred.max()),
         zero_rows=zero_rows, zero_cols=zero_cols,
@@ -736,10 +807,12 @@ def sweep_phase(torch, predict, stitch, ckpt, work, shape, n_scenes, geometry,
         np.save(os.path.join(indir, f"scene{i}.npy"), scene)
     outdir = os.path.join(work, "sweep_out")
     stitch.hann_stitch.launches = 0
+    zero_epilogues()
     written, text, cli_s = run_cli(predict, [
         "sweep", "--input", indir, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
         "--outdir", outdir, "--prefetch", "2", "--nodata", "0", *extra_flags])
     launches = stitch.hann_stitch.launches
+    epilogues = folded_epilogues("sweep", device)
     check(launches == n_scenes, f"hann_stitch launched {launches} times for {n_scenes} scenes")
     cli_mpix_s = float(text.rsplit("(", 1)[1].split(" MPix/s")[0])
 
@@ -777,7 +850,8 @@ def sweep_phase(torch, predict, stitch, ckpt, work, shape, n_scenes, geometry,
         times[name] = sorted(samples)
     mpix = n_scenes * shape[0] * shape[1] / 1e6
     fields = dict(scenes=n_scenes, scene=list(shape), half_nodata_scene=1, prefetch=2,
-                  launches=launches, cli_seconds=cli_s, cli_mpix_per_s=cli_mpix_s,
+                  launches=launches, epilogue_launches=epilogues, cli_seconds=cli_s,
+                  cli_mpix_per_s=cli_mpix_s,
                   max_abs_err_vs_predict_scene=errs,
                   pipelined_seconds=times["pipelined"], serial_seconds=times["serial"],
                   pipelined_mpix_per_s=mpix / median(times["pipelined"]),
@@ -793,9 +867,11 @@ def whole_phase(torch, predict, ckpt, work, scene_path, geometry, extra_flags=()
     from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 
     out = os.path.join(work, "pred_whole.tif")
+    zero_epilogues()
     _, text, cli_s = run_cli(predict, [
         "scene", "--input", scene_path, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
         "--tile-mode", "whole", "--output", out, *extra_flags])
+    epilogues = folded_epilogues("whole", device)
     pred, _ = read_geotiff(out)
     check(np.isfinite(pred).all() and pred.min() >= 0.0 and pred.max() <= 1.0,
           "whole-mode output not finite in [0, 1]")
@@ -817,11 +893,13 @@ def whole_phase(torch, predict, ckpt, work, scene_path, geometry, extra_flags=()
     h, w = scene.shape[:2]
     pad = [h + geometry[1] + (-(h + geometry[1])) % 64, w + geometry[1] + (-(w + geometry[1])) % 64]
     return dict(scene=list(scene.shape), padded_to=pad, cli_seconds=cli_s,
+                epilogue_launches=epilogues,
                 output_min=float(pred.min()), output_max=float(pred.max()),
                 scene_ms_host_input=ms, scene_ms=median(ms), peak_mem_gib=peak)
 
 
-def patches_phase(torch, predict, ckpt, work, n_files, per_file, extra_flags=(), seed=SEED):
+def patches_phase(torch, predict, ckpt, work, n_files, per_file, extra_flags=(), seed=SEED,
+                  device="cuda"):
     """An EE-style export (GZIP TFRecord patches of kernel + buffer, plus
     mixer.json) through ``predict patches``; checks the count and shape of
     the prediction records."""
@@ -841,9 +919,11 @@ def patches_phase(torch, predict, ckpt, work, n_files, per_file, extra_flags=(),
                 MixerInfo(n, n_files, (cfg.kernel_size, cfg.kernel_size),
                           (10.0, 0.0, 600000.0, 0.0, -10.0, 4500000.0), "EPSG:32617"))
     synth_s = time.perf_counter() - t0
+    zero_epilogues()
     written, text, cli_s = run_cli(predict, [
         "patches", "--input", export, "--ckpt", ckpt, "--config", "solar", "--fold-bn",
         "--outdir", os.path.join(work, "patch_preds"), "--base", "solar", *extra_flags])
+    epilogues = folded_epilogues("patches", device)
     check(len(written) == 1, f"expected one prediction file, got {written}")
     records = read_tfrecord_file(written[0], compression=None)
     check(len(records) == n, f"{len(records)} prediction records for {n} patches")
@@ -853,7 +933,7 @@ def patches_phase(torch, predict, ckpt, work, n_files, per_file, extra_flags=(),
     check(np.isfinite(vals).all() and vals.min() >= 0.0 and vals.max() <= 1.0,
           "patch predictions not finite in [0, 1]")
     return dict(files=n_files, patches=n, patch_side=side, synth_seconds=synth_s,
-                cli_seconds=cli_s, records=len(records),
+                cli_seconds=cli_s, epilogue_launches=epilogues, records=len(records),
                 record_len=cfg.kernel_size ** 2, mixer=f"mixer: {n} patches" in text)
 
 
@@ -1578,13 +1658,42 @@ def warm_step_fields(torch, trainer, x, y, batch, side, device):
 
 
 def kernel_counts(pre, stitch):
+    from satellite_computervision_tpu_torch.kernels import epilogue
+
     return {"hann_stitch": stitch.hann_stitch.launches,
-            "fused_preprocess": pre.fused_preprocess.launches}
+            "fused_preprocess": pre.fused_preprocess.launches,
+            "conv_epilogue": epilogue.launches()}
 
 
 def zero_counts(pre, stitch):
     stitch.hann_stitch.launches = 0
     pre.fused_preprocess.launches = 0
+    zero_epilogues()
+
+
+def zero_epilogues():
+    from satellite_computervision_tpu_torch.kernels import epilogue
+
+    epilogue.bias_relu_.launches = epilogue.cat_affine_relu.launches = 0
+
+
+def folded_epilogues(path, device, counts=None):
+    """The conv-epilogue launches on ``path``, which serves a folded U-Net:
+    ``counts["conv_epilogue"]`` (``kernel_counts``), or without ``counts``
+    the launches since ``zero_counts``. On the card the folded U-Net must
+    have launched them (27 a chip batch of the plain stem, 28 of the
+    space-to-depth stem); on the CPU it runs the unfused ops."""
+    from satellite_computervision_tpu_torch.kernels import epilogue
+
+    n = epilogue.launches() if counts is None else counts["conv_epilogue"]
+    check((n > 0) == (device == "cuda"),
+          f"{path}: the folded U-Net launched the conv epilogues {n} times on {device}")
+    return n
+
+
+def without_epilogues(counts):
+    """``counts`` (``kernel_counts``) less the conv epilogues'."""
+    return {k: v for k, v in counts.items() if k != "conv_epilogue"}
 
 
 def synthesize_series(root, n, t, bands, side, seed):
@@ -2071,7 +2180,7 @@ def acquire_phase(torch, predict, stitch, pre, ckpt, work, side, n_items, crop, 
     seconds["write"] = time.perf_counter() - t0
     launches = kernel_counts(pre, stitch)
     peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
-    check(launches == {"hann_stitch": 1, "fused_preprocess": 0},
+    check(launches == {"hann_stitch": 1, "fused_preprocess": 0, "conv_epilogue": 0},
           f"acquire: kernel launches {launches}, expected one hann_stitch")
 
     # ---- where the device time of masking and compositing goes: the
@@ -2219,7 +2328,8 @@ def calibrate_phase(torch, predict, stitch, pre, ckpt, shape, geometry, seed=SEE
     sync(device)
     serve_s = time.perf_counter() - t0
     launches = kernel_counts(pre, stitch)
-    check(launches == {"hann_stitch": len(BIASES), "fused_preprocess": 0},
+    folded_epilogues("calibrate", device, launches)
+    check(without_epilogues(launches) == {"hann_stitch": len(BIASES), "fused_preprocess": 0},
           f"calibrate: kernel launches {launches}, expected one hann_stitch per scene")
     preds = preds.cpu().numpy()
     check(preds.dtype == np.uint8 and preds.shape == (len(BIASES),) + shape[:2] + (1,),
@@ -2314,7 +2424,7 @@ def dp_train_part(torch, pre, stitch, mesh, train_files, cfg, steps, device, see
     batches = [preprocess(raw, draw, train=True) for raw in raws]
     dp_ms, dp_losses = run(dp_step, dp_state, [shard_batch(b, mesh) for b in batches])
     counts = kernel_counts(pre, stitch)
-    check(counts == {"hann_stitch": 0, "fused_preprocess": steps},
+    check(counts == {"hann_stitch": 0, "fused_preprocess": steps, "conv_epilogue": 0},
           f"dp_train: kernel launches {counts}, expected {steps} fused_preprocess")
     dp_peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
 
@@ -2538,7 +2648,7 @@ def spatial_part(torch, pre, stitch, mesh, train_ckpt, scene, swath, max_rows, g
             recorded.append((chips.clone(), args, kwargs))
         return real(chips, *args, **kwargs)
 
-    cases, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0}
+    cases, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0, "conv_epilogue": 0}
     want_scene = None
     for name, model, data, rows, tol in (("scene", served, scene, None, 1e-2),
                                          ("swath", served, swath, max_rows, 1e-2),
@@ -2558,9 +2668,11 @@ def spatial_part(torch, pre, stitch, mesh, train_ckpt, scene, swath, max_rows, g
         finally:
             spatial_mod.hann_stitch = real
         bands = spatial_bands(data.shape[0], kernel, buffer, rows or data.shape[0])
-        check(launches == {"hann_stitch": bands, "fused_preprocess": 0},
+        folded_epilogues(f"spatial {name}", device, launches)
+        check(without_epilogues(launches) == {"hann_stitch": bands, "fused_preprocess": 0},
               f"spatial {name}: kernel launches {launches}, expected {bands} hann_stitch")
-        counts["hann_stitch"] += launches["hann_stitch"]
+        for k in ("hann_stitch", "conv_epilogue"):
+            counts[k] += launches[k]
         check(tuple(got.shape) == data.shape[:2] + (1,), f"spatial {name}: shape {got.shape}")
         check(bool(torch.isfinite(got).all()) and 0.0 <= float(got.min()) and
               float(got.max()) <= 1.0, f"spatial {name}: outputs outside [0, 1]")
@@ -2596,7 +2708,8 @@ def sharded_engine_part(torch, pre, stitch, mesh, scene, want, fwd, geometry, de
     sync(device)
     seconds = time.perf_counter() - t0
     counts = kernel_counts(pre, stitch)
-    check(counts == {"hann_stitch": 1, "fused_preprocess": 0},
+    folded_epilogues("sharded engine", device, counts)
+    check(without_epilogues(counts) == {"hann_stitch": 1, "fused_preprocess": 0},
           f"sharded engine: kernel launches {counts}")
     check(torch.equal(got, want), "the sharded engine is not bit-equal to the engine")
     return dict(shape=list(scene.shape), seconds=seconds, bit_equal_to_engine=True,
@@ -2862,6 +2975,7 @@ def h5_phase(torch, predict, evaluate_cli, stitch, pre, work, eval_glob, scene, 
     chips_s = time.perf_counter() - t0
     counts = kernel_counts(pre, stitch)
     check(counts["hann_stitch"] == 1, f"hann_stitch launched {counts} times on the h5 path")
+    folded_epilogues("h5", device, counts)
 
     # held against their plain versions (launches not counted): the
     # engine's stitch on its own chip predictions, and predict_chips
@@ -3035,7 +3149,7 @@ def convergence_phase(torch, pre, stitch, work, device="cuda", sizes=CONVERGENCE
         recorded.append((chips.clone(), args, kwargs))
         return real(chips, *args, **kwargs)
 
-    fields, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0}
+    fields, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0, "conv_epilogue": 0}
     tiles.hann_stitch = recording
     try:
         for name, module, argv, want in runs:
@@ -3046,7 +3160,7 @@ def convergence_phase(torch, pre, stitch, work, device="cuda", sizes=CONVERGENCE
             sync(device)
             seconds = time.perf_counter() - t0
             launches = kernel_counts(pre, stitch)
-            check(launches == {"hann_stitch": want, "fused_preprocess": 0},
+            check(without_epilogues(launches) == {"hann_stitch": want, "fused_preprocess": 0},
                   f"convergence {name}: kernel launches {launches}, expected {want} hann_stitch")
             for k, v in launches.items():
                 counts[k] += v
@@ -3176,7 +3290,7 @@ def convergence_families_phase(torch, pre, stitch, work, device="cuda", sizes=FA
         recorded.append((chips.clone(), args, kwargs))
         return real(chips, *args, **kwargs)
 
-    fields, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0}
+    fields, counts = {}, {"hann_stitch": 0, "fused_preprocess": 0, "conv_epilogue": 0}
     tiles.hann_stitch = recording
     try:
         for name, module, argv, want in runs:
@@ -3187,7 +3301,7 @@ def convergence_families_phase(torch, pre, stitch, work, device="cuda", sizes=FA
             sync(device)
             seconds = time.perf_counter() - t0
             launches = kernel_counts(pre, stitch)
-            check(launches == {"hann_stitch": want, "fused_preprocess": 0},
+            check(without_epilogues(launches) == {"hann_stitch": want, "fused_preprocess": 0},
                   f"{name}: kernel launches {launches}, expected {want} hann_stitch")
             for k, v in launches.items():
                 counts[k] += v
@@ -3301,6 +3415,7 @@ def main():
     from satellite_computervision_tpu_torch.geo import GeoTiffScene, read_geotiff
     from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
     from satellite_computervision_tpu_torch.kernels import _build, stitch
+    from satellite_computervision_tpu_torch.kernels import epilogue as ep
     from satellite_computervision_tpu_torch.kernels import preprocess as pre
     from satellite_computervision_tpu_torch.models import unet_solar
     from satellite_computervision_tpu_torch.parallel.spatial import band_row_weights
@@ -3402,6 +3517,16 @@ def main():
                   for c in pre_small + list(pre_path.values()) + [pre_hard, pre_streamed])
     check(pre_err <= tol, f"fused_preprocess disagrees with its plain version: {pre_err}")
 
+    # the conv epilogues at the solar sweep's 640² and 40² sites (16 chips)
+    # and its largest and smallest concatenations
+    epi = [epilogue_case(torch, ep, 16, 640, 32), epilogue_case(torch, ep, 16, 40, 512),
+           epilogue_case(torch, ep, 16, 640, 32, 32), epilogue_case(torch, ep, 16, 40, 512, 512),
+           epilogue_case(torch, ep, 3, 7, 24, timed=False),
+           epilogue_case(torch, ep, 3, 7, 16, 8, timed=False)]
+    emit("kernels", name="conv_epilogue", cases=epi)
+    check(all(c["bit_equal"] for c in epi),
+          "a conv-epilogue kernel is not bit-equal to its plain version")
+
     # ---- the solar serving slice, through the CLI a user runs
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -3477,10 +3602,16 @@ def main():
     sweep, sweep_launches = sweep_phase(torch, predict, stitch, ckpt, work, SCENE,
                                         SWEEP_SCENES, (kernel, buffer, batch))
     emit("sweep", **sweep)
-    emit("whole", **whole_phase(torch, predict, ckpt, work, scene_path, (kernel, buffer)))
-    emit("patches", **patches_phase(torch, predict, ckpt, work, 2, 8))
+    whole = whole_phase(torch, predict, ckpt, work, scene_path, (kernel, buffer))
+    emit("whole", **whole)
+    patches = patches_phase(torch, predict, ckpt, work, 2, 8)
+    emit("patches", **patches)
     serving_launches = {"slice": launches["hann_stitch"], "swath": swath_launches,
                         "sweep": sweep_launches}
+    epilogue_by_path = {"slice": launches["conv_epilogue"],
+                        **{p: f["epilogue_launches"] for p, f in (
+                            ("swath", swath), ("sweep", sweep), ("whole", whole),
+                            ("patches", patches))}}
 
     # ---- the solar training slice, then its checkpoint served
     train_fields, train_launches, train_step, train_preprocess = train_phase(torch, work, gen)
@@ -3590,6 +3721,7 @@ def main():
     new_paths["bench"] = bench_counts
     train_by_path = {"train": train_launches["fused_preprocess"],
                      **{p: c["fused_preprocess"] for p, c in new_paths.items()}}
+    epilogue_by_path.update({p: c["conv_epilogue"] for p, c in new_paths.items()})
 
     # ---- where a warm scene's and a warm train step's device time goes
     emit("profile", what="scene", **device_profile(torch, run_dev))
@@ -3629,6 +3761,10 @@ def main():
          "landcover_shape": {k: landcover_shape[k] for k in (
              "shape", "canvas", "max_abs_err", "weighted_max_abs_err", "ms", "device_ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")}},
+        {"name": "conv_epilogue", "route": "cuda",
+         "source": "satellite_computervision_tpu_torch/csrc/conv_epilogue.cu",
+         "replaces": None, "launches": sum(epilogue_by_path.values()),
+         "launches_by_path": epilogue_by_path, "cases": [c for c in epi if "ms" in c]},
         {"name": "fused_preprocess", "route": "cuda",
          "source": "satellite_computervision_tpu_torch/csrc/fused_preprocess.cu",
          "replaces": "satellite_computervision_tpu/pallas/preprocess.py:135",

@@ -28,8 +28,9 @@ Port of ``satellite_computervision_tpu/inference/tiles.py``
 Each stage is a span (``utils.profiling.span``, recorded only while a
 ``torch.profiler`` session runs): ``serve.scene`` around one scene, with
 ``serve.input``, ``serve.forward`` (one per chip batch: ``chips`` real,
-``padded`` repeated) and ``serve.stitch`` inside it; ``predict_scenes``
-adds ``serve.host_scene`` on the staging thread, ``serve.readback`` and
+``padded`` repeated, ``kernels`` the hand-written kernels it launched,
+``kernels.launches``) and ``serve.stitch`` inside it; ``predict_scenes`` adds
+``serve.host_scene`` on the staging thread, ``serve.readback`` and
 ``serve.result_ahead`` on the dispatch thread and ``serve.result_wait``
 on the caller's, each with the scene's sequence number ``scene``.
 """
@@ -43,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from satellite_computervision_tpu_torch import kernels
 from satellite_computervision_tpu_torch._device import resolve_device
 from satellite_computervision_tpu_torch.geo.geotiff import (
     GeoTiffCogStreamWriter,
@@ -255,11 +257,13 @@ class TiledInferenceEngine:
         preds = []
         for g in range(0, len(corners), bsz):
             real = min(bsz, max(n - g, 0))
-            with span("serve.forward", chips=real, padded=bsz - real):
+            with span("serve.forward", chips=real, padded=bsz - real) as s:
+                launched = kernels.launches()
                 chips = torch.stack(
                     [padded[i][y : y + side, x : x + side] for i, y, x in corners[g : g + bsz]]
                 )
                 preds.append(self.predict_fn(chips).float())
+                s.set(kernels=kernels.launches() - launched)
         return torch.cat(preds)
 
     def _stitch(self, preds, h, w, rows, cols, prepadded=False):
@@ -306,8 +310,10 @@ class TiledInferenceEngine:
         half = self.buffer // 2
         with span("serve.input"):
             x = self._input(scene, prepadded)
-        with span("serve.forward", chips=1, padded=0):
+        with span("serve.forward", chips=1, padded=0) as s:
+            launched = kernels.launches()
             pred = self.predict_fn(x[None])[0].float()
+            s.set(kernels=kernels.launches() - launched)
         return self._finish(pred[half : half + h, half : half + w])
 
     def _run(self, scene, prepadded=False, cull=False, valid_chips=None) -> torch.Tensor:

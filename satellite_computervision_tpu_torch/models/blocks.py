@@ -17,6 +17,13 @@ came from (models/bridge.py maps one onto the other).
   affine lives in the conv weights, models/fold.py), and the decoder's
   post-concat BN is a per-channel affine ``affine_0_scale/bias``.
 - Blocks take and return NCHW tensors; the UNet converts at its edges.
+- A folded block serving on the card (no autograd, no autocast; bf16 or
+  float32 channels-last activations of the parameters' dtype that the
+  kernels take, :func:`epilogue_route`) runs
+  its convs without their biases and every per-channel op after them in
+  the hand-written epilogue kernels (``kernels/epilogue.py``): bias + ReLU
+  in place, and the decoder's concatenation + affine + ReLU in one pass.
+  The output is bit-equal to the unfused ops, which every other case runs.
 - ``resize_nearest`` is ``jax.image.resize(method="nearest")``, which
   samples source pixel ``floor((i + 0.5) * in / out)``: torch's
   ``"nearest-exact"``. Torch's ``"nearest"`` samples ``floor(i * in /
@@ -30,6 +37,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from satellite_computervision_tpu_torch.kernels import epilogue
 
 BN_EPS = 1e-3  # Keras default, as blocks.py uses
 
@@ -88,6 +97,34 @@ def _bn(ch: int, bn_momentum: float = BN_MOMENTUM) -> BatchNorm:
     return BatchNorm(ch, eps=BN_EPS, momentum=1.0 - bn_momentum)
 
 
+def epilogue_route(module: nn.Module, folded: bool, acts, *channels: int) -> bool:
+    """Whether ``module`` runs its epilogues through the hand-written
+    kernels: it is ``folded`` (no BatchNorm between a conv and its ReLU);
+    no autograd records (serving); autocast is off and every parameter has
+    the activations' dtype, so each conv returns that dtype too; and the
+    kernels take each of the activations ``acts`` and the sites'
+    ``channels`` (``epilogue.takes``)."""
+    dtype = acts[0].dtype
+    return (folded and not torch.is_grad_enabled()
+            and not torch.is_autocast_enabled(acts[0].device.type)
+            and all(a.dtype == dtype and epilogue.takes(a, *channels) for a in acts)
+            and all(p.dtype == dtype for p in module.parameters()))
+
+
+def _without_bias(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` before its bias is added (a ``Conv2d`` or a
+    ``ConvTranspose2d``)."""
+    if isinstance(conv, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, conv.weight, None, conv.stride, conv.padding,
+                                  conv.output_padding, conv.groups, conv.dilation)
+    return conv._conv_forward(x, conv.weight, None)
+
+
+def conv_bias_relu_(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``relu(conv(x))``, the bias added by the ReLU's kernel, in place."""
+    return epilogue.bias_relu_(_without_bias(conv, x), conv.bias)
+
+
 class ConvBNAct(nn.Module):
     """Conv2D(SAME, dilation) -> BatchNorm -> ReLU.
 
@@ -102,6 +139,8 @@ class ConvBNAct(nn.Module):
         self.BatchNorm_0 = None if fold_bn else _bn(features, bn_momentum)
 
     def forward(self, x):
+        if epilogue_route(self, self.BatchNorm_0 is None, (x,), self.Conv_0.out_channels):
+            return conv_bias_relu_(self.Conv_0, x)
         x = self.Conv_0(x)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
@@ -169,20 +208,39 @@ class DecoderBlock(nn.Module):
         self.Conv_0 = nn.Conv2d(cat, features, 3, padding="same")
         self.Conv_1 = nn.Conv2d(features, features, 3, padding="same")
 
-    def forward(self, x, skip):
+    def _cat_affine_relu(self, x, skip):
         x = torch.cat([skip, self.ConvTranspose_0(x)], dim=1)
         if self.fold_bn:
             x = x * self.affine_0_scale[:, None, None] + self.affine_0_bias[:, None, None]
         else:
             x = self.BatchNorm_0(x)
-        x = F.relu(x)
+        return F.relu(x)
+
+    def _conv_relu(self, i, x):
+        x = getattr(self, f"Conv_{i}")(x)
+        if not self.fold_bn:
+            x = getattr(self, f"BatchNorm_{i + 1}")(x)
+        return F.relu(x)
+
+    def _fused_cat_affine_relu(self, x, skip):
+        up = self.ConvTranspose_0
+        return epilogue.cat_affine_relu(skip, _without_bias(up, x), up.bias,
+                                        self.affine_0_scale, self.affine_0_bias)
+
+    def _fused_conv_relu(self, i, x):
+        return conv_bias_relu_(getattr(self, f"Conv_{i}"), x)
+
+    def forward(self, x, skip):
+        c_skip, c_up = skip.shape[1], self.ConvTranspose_0.out_channels
+        if epilogue_route(self, self.fold_bn, (x, skip), c_skip, c_up, c_skip + c_up):
+            cat_affine_relu, conv_relu = self._fused_cat_affine_relu, self._fused_conv_relu
+        else:
+            cat_affine_relu, conv_relu = self._cat_affine_relu, self._conv_relu
+        x = cat_affine_relu(x, skip)
         if self.dropout is not None:
             x = self.dropout(x)
         for i in range(2):
-            x = getattr(self, f"Conv_{i}")(x)
-            if not self.fold_bn:
-                x = getattr(self, f"BatchNorm_{i + 1}")(x)
-            x = F.relu(x)
+            x = conv_relu(i, x)
         return x
 
 

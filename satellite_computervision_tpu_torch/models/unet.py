@@ -12,7 +12,10 @@ trunk runs NCHW; an NHWC input permuted to NCHW has channels-last strides,
 which is what cuDNN prefers on the card. The input is cast to the
 parameters' dtype (bf16 when serving; training in bf16 runs float32
 parameters under ``torch.autocast``), and the logits are cast to float32
-before the head, as the JAX model does.
+before the head, as the JAX model does. Folded and serving on the card,
+every per-channel op after a conv runs in the hand-written epilogue
+kernels (``models/blocks.py``), the space-to-depth stem's upsample and
+ReLU too.
 
 ``remat=True`` runs each encoder, centre and decoder block through
 ``torch.utils.checkpoint`` (flax ``nn.remat`` per block in the JAX model):
@@ -42,6 +45,8 @@ from satellite_computervision_tpu_torch.models.blocks import (
     DecoderBlock,
     EncoderBlock,
     _bn,
+    conv_bias_relu_,
+    epilogue_route,
 )
 
 # flax's truncated_normal initializer draws a standard normal truncated at
@@ -191,10 +196,14 @@ class UNet(nn.Module):
         for i, skip in enumerate(reversed(skips)):
             x = call(getattr(self, f"DecoderBlock_{i}"), x, skip)
         if self.space_to_depth:
-            x = self.stem_upsample(x)
-            if self.stem_upsample_bn is not None:
-                x = self.stem_upsample_bn(x)
-            x = F.relu(x)
+            if epilogue_route(self.stem_upsample, self.stem_upsample_bn is None, (x,),
+                              self.stem_upsample.out_channels):
+                x = conv_bias_relu_(self.stem_upsample, x)
+            else:
+                x = self.stem_upsample(x)
+                if self.stem_upsample_bn is not None:
+                    x = self.stem_upsample_bn(x)
+                x = F.relu(x)
         if self.dropout is not None:
             x = self.dropout(x)
 

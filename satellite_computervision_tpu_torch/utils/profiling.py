@@ -156,6 +156,9 @@ class _NoSpan:
     def __exit__(self, *exc):
         return None
 
+    def set(self, **attrs):
+        return None
+
 
 _NO_SPAN = _NoSpan()
 
@@ -184,6 +187,10 @@ class _Span:
         self.start = time.time_ns()
         return self
 
+    def set(self, **attrs):
+        """Add ``attrs`` known only inside the block (counts it made)."""
+        self.attrs.update(attrs)
+
     def __exit__(self, *exc):
         end = time.time_ns()
         self.stack.remove(self)
@@ -201,8 +208,8 @@ def span(name: str, **attrs):
     returns a shared do-nothing context. While one runs, the block is a
     ``record_function(name)`` and is logged with its thread, stamps,
     parent and ``attrs`` (counts such as bytes or chips, and the
-    ``scene``/``batch`` id, which children inherit). A ``name`` of None
-    is no span."""
+    ``scene``/``batch`` id, which children inherit; ``set`` adds more
+    inside the block). A ``name`` of None is no span."""
     if not _autograd_profiler._is_profiler_enabled or name is None:
         return _NO_SPAN
     return _Span(name, attrs)

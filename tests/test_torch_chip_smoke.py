@@ -73,7 +73,7 @@ def test_sweep_whole_and_patches_phases_on_cpu(smoke):
                            device="cpu")
     assert whole["padded_to"] == [128, 128] and 0.0 <= whole["output_min"]
     patches = cs.patches_phase(torch, predict, ckpt, work, 2, 3,
-                               ["--device", "cpu", "--batch-size", "4"])
+                               ["--device", "cpu", "--batch-size", "4"], device="cpu")
     assert patches["records"] == 6 and patches["mixer"]
 
 
@@ -153,7 +153,8 @@ def test_timeseries_train_phase_on_cpu(smoke, monkeypatch):
                                                       ["--device", "cpu"], device="cpu")
     for step in steps.values():
         step()
-    assert counts == fields["launches"] == {"hann_stitch": 0, "fused_preprocess": 0}
+    assert counts == fields["launches"] == {"hann_stitch": 0, "fused_preprocess": 0,
+                                            "conv_epilogue": 0}
     conv, ae = fields["convlstm"], fields["lstm_autoencoder"]
     assert conv["arch"] == "convlstm" and conv["outputs"] == [2, 16, 16, 4]
     assert ae["outputs"] == {"temporal": [2, 6, 16, 16, 4], "single": [2, 16, 16, 4]}
@@ -179,7 +180,7 @@ def test_landcover_train_phase_on_cpu(smoke, monkeypatch):
                                                      device="cpu")
     for step in steps.values():
         step()
-    assert counts == {"hann_stitch": 0, "fused_preprocess": 0}
+    assert counts == {"hann_stitch": 0, "fused_preprocess": 0, "conv_epilogue": 0}
     assert sorted(steps) == ["acnn", "hierarchical", "hybrid"]
     assert fields["acnn"]["eval_pixels"] == 2 * 32 * 32 and len(fields["acnn"]["history"]) == 2
     assert "32x32 does not survive the pool factors" in fields["hybrid_at_preset_side"]
@@ -202,7 +203,7 @@ def test_acquire_and_calibrate_phases_on_cpu(smoke):
     save_checkpoint(change_ckpt, model, {})
     fields, launches = cs.acquire_phase(torch, predict, stitch, pre, change_ckpt, work, 64, 2,
                                         32, GEOMETRY, device="cpu")
-    assert launches == {"hann_stitch": 1, "fused_preprocess": 0}
+    assert launches == {"hann_stitch": 1, "fused_preprocess": 0, "conv_epilogue": 0}
     assert fields["pair_shape"] == [64, 64, 8] and fields["chips"] == 16
     assert 0.0 < fields["masked_share"] < 1.0 and fields["stitch_max_abs_err"] == 0.0
     assert min(fields["crop_pixels_raw_score_below_0"]) > 0
@@ -212,7 +213,7 @@ def test_acquire_and_calibrate_phases_on_cpu(smoke):
     assert set(fields["seconds"]) == {"synthesis", "masks", "composite", "predict", "write"}
     fields, launches = cs.calibrate_phase(torch, predict, stitch, pre, ckpt, (48, 48, 6),
                                           GEOMETRY, device="cpu")
-    assert launches == {"hann_stitch": 6, "fused_preprocess": 0}
+    assert launches == {"hann_stitch": 6, "fused_preprocess": 0, "conv_epilogue": 0}
     assert list(fields["report"]) == ["DE", "MD", "PA", "NY", "VA", "WV"]
 
 
@@ -264,12 +265,17 @@ def test_parallel_phase_on_cpu(smoke, monkeypatch):
                                        GEOMETRY, dp_steps=2, remat_batch=2, retrain_steps=2,
                                        extra_flags=["--device", "cpu"], device="cpu")
     assert fields["backend"] == "gloo" and fields["world_size"] == 1
-    assert counts["parallel.dp_train"] == {"hann_stitch": 0, "fused_preprocess": 2}
-    assert counts["parallel.remat"] == {"hann_stitch": 0, "fused_preprocess": 0}
-    assert counts["parallel.retrain"] == {"hann_stitch": 0, "fused_preprocess": 1}
+    assert counts["parallel.dp_train"] == {"hann_stitch": 0, "fused_preprocess": 2,
+                                           "conv_epilogue": 0}
+    assert counts["parallel.remat"] == {"hann_stitch": 0, "fused_preprocess": 0,
+                                        "conv_epilogue": 0}
+    assert counts["parallel.retrain"] == {"hann_stitch": 0, "fused_preprocess": 1,
+                                          "conv_epilogue": 0}
     # one band each for the scene and the float32 case, 19 for the swath
-    assert counts["parallel.spatial"] == {"hann_stitch": 1 + 19 + 1, "fused_preprocess": 0}
-    assert counts["parallel.sharded_engine"] == {"hann_stitch": 1, "fused_preprocess": 0}
+    assert counts["parallel.spatial"] == {"hann_stitch": 1 + 19 + 1, "fused_preprocess": 0,
+                                          "conv_epilogue": 0}
+    assert counts["parallel.sharded_engine"] == {"hann_stitch": 1, "fused_preprocess": 0,
+                                                 "conv_epilogue": 0}
     dp = fields["dp_train"]
     assert dp["f32_loss_rel_err"] <= 1e-4 and dp["f32_grad_max_abs_err_over_max_grad"] <= 1e-3
     assert fields["remat"]["dcp_restored_bit_equal"]
@@ -305,7 +311,7 @@ def test_h5_phase_on_cpu(smoke, monkeypatch, h5_files):
     fields, counts = cs.h5_phase(torch, predict, evaluate, stitch, pre, work,
                                  str(root / "eval-*.tfrecord.gz"), scene, GEOMETRY, "card",
                                  device="cpu", hybrid_side=24, h5_files=h5_files)
-    assert counts == {"hann_stitch": 1, "fused_preprocess": 0}
+    assert counts == {"hann_stitch": 1, "fused_preprocess": 0, "conv_epilogue": 0}
     assert fields["h5py"] == ("present" if h5_files else "absent")
     unet = fields["unet"]
     assert unet["arch"] == dict(bands=6, filters=[4, 8], factors=[2, 2], convs_per_block=1,
@@ -363,7 +369,7 @@ def test_convergence_phase_on_cpu(smoke, monkeypatch):
     )
     fields, counts = cs.convergence_phase(torch, pre, stitch, work, device="cpu", sizes=sizes)
     # 7 chip rows in bands of 2 + 16 rows advancing 1: 7 bands
-    assert counts == {"hann_stitch": 1 + 1 + 7, "fused_preprocess": 0}
+    assert counts == {"hann_stitch": 1 + 1 + 7, "fused_preprocess": 0, "conv_epilogue": 0}
     assert [fields[n]["launches"]["hann_stitch"] for n in (
         "solar", "change", "parking_export", "parking_warm", "swath")] == [1, 1, 0, 0, 7]
     assert set(fields["solar"]["scene_eval_iou"]) == {"chips", "hann", "whole"}
@@ -413,7 +419,7 @@ def test_convergence_families_phase_on_cpu(smoke, monkeypatch):
                  demos=dict(change_detection=[]))
     fields, counts = cs.convergence_families_phase(torch, pre, stitch, work, device="cpu",
                                                    sizes=sizes)
-    assert counts == {"hann_stitch": 1, "fused_preprocess": 0}
+    assert counts == {"hann_stitch": 1, "fused_preprocess": 0, "conv_epilogue": 0}
     assert [fields[n]["launches"]["hann_stitch"] for n in (
         "landcover", "hierarchical", "hybrid", "lstm_ae", "timeseries",
         "change_detection")] == [1, 0, 0, 0, 0, 0]
@@ -443,7 +449,7 @@ def test_bench_phase_on_cpu(smoke, monkeypatch, capsys):
         monkeypatch.setattr(bench, name, value)
     fields, counts = cs.bench_phase(torch, pre, stitch, device="cpu")
     # the tuned grid: warm, 2 timed, the FLOP count; the k64 hann grid: warm, 2 timed
-    assert counts == {"hann_stitch": 7, "fused_preprocess": 0}
+    assert counts == {"hann_stitch": 7, "fused_preprocess": 0, "conv_epilogue": 0}
     assert fields["stitch_shapes"] == [[9, 160, 160, 1], [25, 96, 96, 1]]
     assert fields["stitch_max_abs_err"] == 0.0
     line = json.loads(capsys.readouterr().out.splitlines()[-1])

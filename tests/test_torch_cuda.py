@@ -16,8 +16,9 @@ import torch
 
 from satellite_computervision_tpu_torch.data.pipeline import make_preprocess_fn
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
-from satellite_computervision_tpu_torch.kernels import preprocess, stitch
+from satellite_computervision_tpu_torch.kernels import epilogue, preprocess, stitch
 from satellite_computervision_tpu_torch.models import DeepLabV3Plus, SiameseUNet, UNet
+from test_torch_epilogue import _bits, folded_unet, unfused_forward
 
 pytestmark = pytest.mark.cuda
 
@@ -513,3 +514,130 @@ def test_h5_round_trip_of_a_card_model(cuda):
     x = torch.rand((2, 32, 32, 6), generator=g).to(cuda)
     with torch.no_grad():
         assert torch.equal(back(x)["probs"], model(x)["probs"])
+
+
+# ---- the conv epilogues (kernels/epilogue.py) at the sweep's shapes: the
+# solar U-Net's 16 chips of 640² at each level, and the odd cases
+SWEEP_SITES = [(640, 32), (320, 64), (160, 128), (80, 256), (40, 512), (20, 1024)]
+SWEEP_CONCATS = [(40, 512, 512), (80, 256, 256), (160, 128, 128), (320, 64, 64), (640, 32, 32)]
+
+
+def _hard_on_card(shape, dtype, seed):
+    """Normals on the card with NaN, +-0, +-inf and -1e30 planted, channels-last."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda") * 3.0
+    flat = x.view(-1)
+    for i, v in enumerate([float("nan"), 0.0, -0.0, float("inf"), -float("inf"), -1e30]):
+        flat[i::61] = v
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _vector_on_card(n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn(n, generator=g, device="cuda")
+    v[:4] = torch.tensor([0.0, -0.0, -5.0, float("nan")])
+    return v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,side,c", [(16, s, c) for s, c in SWEEP_SITES] + [
+    (3, 7, 8),      # pixels not a whole number of blocks
+    (2, 5, 24),     # 3 (bf16) or 6 (f32) vectors a pixel: blocks of 255 / 252 threads
+    (1, 3, 8192),   # 1024 (bf16) or 2048 (f32: past a block) vectors a pixel
+])
+def test_bias_relu_kernel_bit_equal(cuda, dtype, b, side, c):
+    if dtype == torch.float32 and c == 8192:
+        with pytest.raises(ValueError):
+            epilogue.bias_relu_(_hard_on_card((b, c, side, side), dtype, 0),
+                                _vector_on_card(c, dtype, 1))
+        return
+    y = _hard_on_card((b, c, side, side), dtype, side + c)
+    bias = _vector_on_card(c, dtype, c)
+    want = epilogue.bias_relu_reference(y.clone(memory_format=torch.channels_last), bias)
+    before = epilogue.bias_relu_.launches
+    got = epilogue.bias_relu_(y, bias)
+    torch.cuda.synchronize()
+    assert got is y and epilogue.bias_relu_.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,side,c_skip,c_up", [(16, *s) for s in SWEEP_CONCATS] + [
+    (3, 7, 16, 8),   # the sources of unequal widths
+    (2, 5, 8, 16),
+    (1, 3, 4096, 4096),  # 1024 (bf16) vectors a pixel: a block of 1024 threads
+])
+def test_cat_affine_relu_kernel_bit_equal(cuda, dtype, b, side, c_skip, c_up):
+    skip = _hard_on_card((b, c_skip, side, side), dtype, side + c_skip)
+    up = _hard_on_card((b, c_up, side, side), dtype, side + c_up + 1)
+    up_bias = _vector_on_card(c_up, dtype, 2)
+    scale = _vector_on_card(c_skip + c_up, dtype, 3)
+    shift = _vector_on_card(c_skip + c_up, dtype, 4)
+    if dtype == torch.float32 and c_skip + c_up > 4096:  # 2048 vectors a pixel: past a block
+        with pytest.raises(ValueError):
+            epilogue.cat_affine_relu(skip, up, up_bias, scale, shift)
+        return
+    want = epilogue.cat_affine_relu_reference(skip, up, up_bias, scale, shift)
+    before = epilogue.cat_affine_relu.launches
+    got = epilogue.cat_affine_relu(skip, up, up_bias, scale, shift)
+    torch.cuda.synchronize()
+    assert epilogue.cat_affine_relu.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_epilogue_kernels_reject_unaligned_activations(cuda):
+    y = torch.zeros((2 * 16 * 4 * 4 + 1,), device=cuda)[1:].view(2, 4, 4, 16).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError):
+        epilogue.bias_relu_(y, torch.zeros(16, device=cuda))
+
+
+def test_folded_solar_unet_served_on_card_bit_equal_to_the_unfused_ops(cuda):
+    """The solar U-Net, folded, in bf16 channels-last as ``predict`` serves
+    it: its probabilities bit-equal to the forward written out with the
+    unfused ops, 27 epilogue launches a chip batch (22 conv sites, 5
+    decoders), each ``serve.forward`` span carrying them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from satellite_computervision_tpu_torch.predict import to_serving
+    from satellite_computervision_tpu_torch.utils.profiling import span_log
+
+    net = to_serving(folded_unet(), cuda)
+    g = torch.Generator().manual_seed(5)
+    chips = (torch.rand((4, 640, 640, 6), generator=g) * 0.4).to(cuda)
+    with torch.inference_mode():
+        before = epilogue.launches()
+        got = net(chips)["probs"]
+        torch.cuda.synchronize()
+        assert epilogue.launches() == before + 27
+        want = unfused_forward(net, chips)
+    assert torch.equal(got, want)
+
+    engine = TiledInferenceEngine(lambda c: net(c)["probs"], kernel=512, buffer=128,
+                                  batch_size=4, blend="hann", device=cuda)
+    scene = np.random.default_rng(6).uniform(0, 0.4, (1024, 1536, 6)).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU]):
+        engine.predict_scene(scene)
+    forwards = [s.attrs for s in span_log() if s.name == "serve.forward"]
+    assert len(forwards) == 2  # 2 x 3 chips in batches of 4
+    assert all(a["kernels"] == 27 for a in forwards)
+
+
+def test_folded_float32_unet_under_bf16_autocast_keeps_the_unfused_ops(cuda):
+    """``bench.py``'s serving route: a folded float32 U-Net whose predictor
+    runs it under bf16 autocast. Its convs return bf16 beside float32
+    biases, so no epilogue kernel runs, and the probabilities are the
+    unfused ops' under the same autocast, bit for bit."""
+    from satellite_computervision_tpu_torch.bench import predictor
+
+    net = folded_unet().to(cuda)
+    g = torch.Generator().manual_seed(8)
+    chips = (torch.rand((2, 256, 256, 6), generator=g) * 0.4).to(cuda)
+    with torch.inference_mode():
+        before = epilogue.launches()
+        got = predictor(net)(chips)
+        torch.cuda.synchronize()
+        assert epilogue.launches() == before
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            want = unfused_forward(net, chips)
+    assert got.dtype == want.dtype and torch.equal(got, want)
