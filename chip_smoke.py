@@ -21,7 +21,8 @@ line):
    ``parallel.spatial``'s band over the slice scene: 24 x 640² with a
    phantom chip row each side and the whole grid's row weights, timed; and
    landcover's scene eval, 16 x 384² x 8 softmax channels into a 1280² x 8
-   canvas, timed); the conv epilogues (``bias_relu_``, ``cat_affine_relu``)
+   canvas, timed; and the Prithvi ViT's HLS tile, 21 x 21 chips of 224² at
+   stride 176 into a 3872² canvas, timed); the conv epilogues (``bias_relu_``, ``cat_affine_relu``)
    bit-equal in bf16 at the solar sweep's 640² and 40² sites, timed beside
    the unfused ops they replace (``library_ms``), and at a ragged shape.
    ``ms``,
@@ -282,6 +283,9 @@ LANDCOVER_SERIES_SIDE, LANDCOVER_HYBRID_SIDE = 32, 240
 # acquire: raw Sentinel-2 items per period (4096² L1C tiles), and the
 # top-left square of every item and composite held against the CPU
 ACQUIRE_ITEMS, ACQUIRE_SIDE, ACQUIRE_CROP = 6, 4096, 512
+# the Prithvi ViT's serving grid: one 3660² HLS tile in chips of 224²
+# (k176 + b48, the ViT's 14 x 14 patches of 16) at stride 176
+PRITHVI_KERNEL, PRITHVI_BUFFER, PRITHVI_TILE = 176, 48, 3660
 # the bench twin's repeats in the smoke run (its shapes are not cut)
 BENCH_REPEATS = dict(pairs=1, sweeps=1, timed=2, ref=2, syncloop=1, train=2, codec=1, stitch=20)
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -3479,14 +3483,19 @@ def main():
     # landcover's scene eval: the change geometry over a 1024² scene, 16
     # chips of 384² with 8 softmax channels into a 1280² canvas
     landcover_shape = stitch_case(torch, stitch, ck, cb, 4, 4, 8, gen, timed=True)
+    # the Prithvi ViT's tile: 441 chips of 224² into a 3872² canvas
+    v_rows = -(-PRITHVI_TILE // PRITHVI_KERNEL)
+    prithvi_shape = stitch_case(torch, stitch, PRITHVI_KERNEL, PRITHVI_BUFFER, v_rows, v_rows,
+                                1, gen, timed=True)
     emit("kernels", name="hann_stitch", small=small, main_path=main_shape, bands=band_cases,
          change=change_shape, change_bands=change_bands, parking=parking_shape,
-         acquire=acquire_shape, spatial_band=spatial_shape, landcover=landcover_shape)
+         acquire=acquire_shape, spatial_band=spatial_shape, landcover=landcover_shape,
+         prithvi=prithvi_shape)
     # the engine's route: the same products and adds in the same order, so
     # bit-equal; pre-weighted chips: within 1e-6
     tol = 1e-6
     cases = [small, main_shape, change_shape, parking_shape, acquire_shape, spatial_shape,
-             landcover_shape] + band_cases + change_bands
+             landcover_shape, prithvi_shape] + band_cases + change_bands
     check(all(c["max_abs_err"] == 0.0 for c in cases),
           "hann_stitch(apply_window=True) is not bit-equal to its plain version")
     check(all(c["weighted_max_abs_err"] <= tol for c in cases),

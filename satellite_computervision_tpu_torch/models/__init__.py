@@ -1,7 +1,7 @@
 """The model families (PyTorch): U-Net, Siamese U-Net, DeepLab v3+,
 ConvLSTM and LSTM autoencoder, ACNN and hierarchical ACNN, hybrid U-Net +
-ConvLSTM; the U-Net's BN folding, the flax weight bridge (both ways),
-losses and metrics."""
+ConvLSTM, the Prithvi-EO-2.0 ViT with a segmentation head; the U-Net's BN
+folding, the flax weight bridge (both ways), losses and metrics."""
 
 from satellite_computervision_tpu_torch.models.blocks import (
     ASPP,
@@ -30,6 +30,7 @@ from satellite_computervision_tpu_torch.models.convlstm import (
 )
 from satellite_computervision_tpu_torch.models.fold import fold_unet
 from satellite_computervision_tpu_torch.models.hybrid import HybridUNetLSTM, UNetTrunk
+from satellite_computervision_tpu_torch.models.prithvi import PrithviSegmenter
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet, flax_init_, unet_parking, unet_solar
 
@@ -55,6 +56,7 @@ __all__ = [
     "HierarchicalACNN",
     "UNetTrunk",
     "HybridUNetLSTM",
+    "PrithviSegmenter",
     "load_torch_resnet_weights",
     "export_torch_resnet_weights",
     "unet_solar",

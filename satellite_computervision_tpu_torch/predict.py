@@ -15,8 +15,10 @@ Modes:
 
 ``--model`` picks the family (default: the config's, ``siamese`` for
 ``--config change``); ``change`` mode serves the siamese family, the other
-modes the unet family or ``deeplab`` (DeepLab v3+, the parking-lot model;
-BN is not folded for it). The checkpoint is ``<ckpt>/best/model.pt`` (the
+modes the unet family, ``deeplab`` (DeepLab v3+, the parking-lot model;
+BN is not folded for it) or ``prithvi`` (the Prithvi-EO-2.0 ViT with a
+segmentation head; a ``model.pt`` only, the JAX package has no such
+model). The checkpoint is ``<ckpt>/best/model.pt`` (the
 port's format, which records the architecture) or
 ``<ckpt>/best/state.msgpack`` (the JAX package's, built as the config's
 model of that family). On CUDA the model serves in bfloat16; on the CPU
@@ -183,6 +185,8 @@ def load_model(ckpt_dir: str, device, s2d=None, fold_bn: bool = False,
     best = os.path.join(ckpt_dir, "best")
     if os.path.exists(os.path.join(best, "state.msgpack")) and \
             not os.path.exists(os.path.join(best, "model.pt")):
+        if arch == "prithvi":
+            raise ValueError(f"{best} holds a JAX checkpoint; the JAX package has no prithvi")
         tree, meta = read_flax_checkpoint(best)
         if arch != "unet":
             model = load_flax_weights(build_empty(get_family(arch).build, cfg), tree)
@@ -371,7 +375,7 @@ def main(argv=None):
     ap.add_argument("--input-after", help="change mode: the after scene, of the same shape")
     ap.add_argument("--ckpt", required=True, help="checkpoint directory (reads <ckpt>/best)")
     ap.add_argument("--config", choices=sorted(CONFIGS), default="solar")
-    ap.add_argument("--model", choices=["unet", "deeplab", "siamese"], default=None,
+    ap.add_argument("--model", choices=["unet", "deeplab", "siamese", "prithvi"], default=None,
                     help="model family (default: the config's)")
     ap.add_argument("--output", help="scene/change mode: output .tif path (default "
                     "prediction.tif / change.tif)")
@@ -444,9 +448,9 @@ def main(argv=None):
     if args.fold_bn and arch != "unet":
         sys.exit("--fold-bn currently supports the unet family only")
     if (args.mode == "change") != (arch == "siamese"):
-        sys.exit(f"{args.mode} mode serves the "
-                 f"{'siamese' if args.mode == 'change' else 'unet or deeplab'} family, "
-                 f"not {arch}")
+        served = ("siamese family" if args.mode == "change"
+                  else "unet or deeplab family (or prithvi)")
+        sys.exit(f"{args.mode} mode serves the {served}, not {arch}")
     if args.mode == "change":
         if not (args.input_before and args.input_after):
             sys.exit("change mode needs --input-before and --input-after")

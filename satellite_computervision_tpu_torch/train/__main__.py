@@ -1,6 +1,6 @@
 """Config-driven training CLI over the model zoo: TFRecord workloads (the
-unet, deeplab and acnn families) and npy-chip workloads (siamese, convlstm,
-lstm_autoencoder, hybrid, hierarchical).
+unet, deeplab, acnn and prithvi families) and npy-chip workloads (siamese,
+convlstm, lstm_autoencoder, hybrid, hierarchical).
 
 Port of ``scripts/train.py``::
 
@@ -90,13 +90,12 @@ from satellite_computervision_tpu_torch.data.pipeline import (
     make_preprocess_fn,
 )
 from satellite_computervision_tpu_torch.models.deeplab import load_torch_resnet_weights
-from satellite_computervision_tpu_torch.models.unet import flax_init_
 from satellite_computervision_tpu_torch.train.checkpoint import CheckpointManager, build_empty
 from satellite_computervision_tpu_torch.train.config import CONFIGS
 from satellite_computervision_tpu_torch.train.trainer import Trainer, create_train_state
 from satellite_computervision_tpu_torch.train.zoo import FAMILIES
 
-TFRECORD_FAMILIES = ("unet", "deeplab", "acnn")
+TFRECORD_FAMILIES = ("unet", "deeplab", "acnn", "prithvi")
 NPY_FAMILIES = ("siamese", "convlstm", "lstm_autoencoder", "hybrid", "hierarchical")
 
 
@@ -177,9 +176,9 @@ def main(argv=None):
         kw.update(bn_momentum=args.bn_momentum, remat=args.remat)
         if args.s2d is not None:
             kw["space_to_depth"] = args.s2d
-    # built on the meta device and allocated once: flax_init_ draws every
-    # weight and statistic from the seed (a ResNet-50 DeepLab's 40 M draws
-    # take seconds on the host; drawing them twice, once in the
+    # built on the meta device and allocated once: the family's init draws
+    # every weight and statistic from the seed (a ResNet-50 DeepLab's 40 M
+    # draws take seconds on the host; drawing them twice, once in the
     # constructor, doubled that)
     model = build_empty(family.build, cfg, **kw)
     # the example inputs through the meta model, as the JAX CLI's init runs
@@ -187,7 +186,7 @@ def main(argv=None):
     with torch.no_grad():
         model.eval()(*(torch.from_numpy(a).to("meta") for a in family.example_inputs(cfg)))
     model = model.to_empty(device="cpu")
-    flax_init_(model, torch.Generator().manual_seed(args.seed))
+    family.init(model, torch.Generator().manual_seed(args.seed))
     if args.torch_weights:
         loaded = load_torch_resnet_weights(model, args.torch_weights)
         print(f"warm-started ResNet backbone from {args.torch_weights} "

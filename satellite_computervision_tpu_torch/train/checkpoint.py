@@ -41,15 +41,16 @@ from satellite_computervision_tpu_torch.models.bridge import flax_to_torch, torc
 from satellite_computervision_tpu_torch.models.convlstm import LSTMAutoencoder, LSTMModel
 from satellite_computervision_tpu_torch.models.deeplab import DeepLabV3Plus
 from satellite_computervision_tpu_torch.models.hybrid import HybridUNetLSTM
+from satellite_computervision_tpu_torch.models.prithvi import PrithviSegmenter
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet
 from satellite_computervision_tpu_torch.train import flax_msgpack
 
 Model = Union[UNet, SiameseUNet, DeepLabV3Plus, LSTMModel, LSTMAutoencoder, HybridUNetLSTM,
-              ACNN, HierarchicalACNN]
+              ACNN, HierarchicalACNN, PrithviSegmenter]
 ARCHS = {"unet": UNet, "siamese": SiameseUNet, "deeplab": DeepLabV3Plus,
          "convlstm": LSTMModel, "lstm_autoencoder": LSTMAutoencoder, "hybrid": HybridUNetLSTM,
-         "acnn": ACNN, "hierarchical": HierarchicalACNN}
+         "acnn": ACNN, "hierarchical": HierarchicalACNN, "prithvi": PrithviSegmenter}
 
 
 def build_empty(build, *args, **kwargs) -> Model:

@@ -5,7 +5,9 @@ Port of ``satellite_computervision_tpu/train/zoo.py``, all eight families:
 ``unet`` (the ``solar`` and ``parking`` configs), ``deeplab`` (DeepLab v3+
 on a ResNet-50), ``siamese`` (``change``; before and after), ``convlstm``
 and ``lstm_autoencoder`` (``timeseries``), ``hybrid``, ``acnn`` and
-``hierarchical`` (``landcover``, ``wetland``).
+``hierarchical`` (``landcover``, ``wetland``); and one family of the port's
+own, ``prithvi`` (the Prithvi-EO-2.0 ViT encoder with a segmentation head,
+``models/prithvi.py``), which the JAX package does not have.
 
 The JAX modules infer their input channels at ``init``; the port's take
 them at construction: images and series have ``len(cfg.bands)``
@@ -21,22 +23,26 @@ from typing import Callable
 
 import numpy as np
 
-from satellite_computervision_tpu_torch.models import losses
+from satellite_computervision_tpu_torch.models import flax_init_, losses
+from satellite_computervision_tpu_torch.models.prithvi import mae_init_
 
 
 @dataclasses.dataclass(frozen=True)
 class Family:
     """One model family: ``build(cfg, **kw)``, ``example_inputs(cfg)``
     (positional numpy inputs), ``example_labels(cfg)`` (the matching
-    target structure) and ``loss(cfg) -> (loss_fn, pred_key)``, where
+    target structure), ``loss(cfg) -> (loss_fn, pred_key)``, where
     ``pred_key=None`` hands the whole output dict to ``loss_fn``
-    (multi-head families)."""
+    (multi-head families), and ``init(model, generator)``, which draws
+    every weight and statistic from the seed (the JAX CLI's flax
+    initialisation; MAE's for the ViT)."""
 
     name: str
     build: Callable
     example_inputs: Callable
     example_labels: Callable
     loss: Callable
+    init: Callable = flax_init_
 
 
 def _bce(cfg):
@@ -125,6 +131,18 @@ def _build_hierarchical(cfg=None, **kw):
     in_channels = kw.pop("in_channels", _channels(cfg, 4))
     series_channels = kw.pop("series_channels", _channels(cfg, 6))
     return HierarchicalACNN(in_channels, series_channels, n_classes=n, **kw)
+
+
+def _build_prithvi(cfg=None, **kw):
+    from satellite_computervision_tpu_torch.models.prithvi import PrithviSegmenter
+
+    n = cfg.num_classes if cfg else 1
+    kw.setdefault("head", "sigmoid" if n == 1 else "softmax")
+    kw.setdefault("threshold", cfg.threshold if cfg else 0.5)
+    # a config's chips are one date of its bands unless ``frames`` says more
+    kw.setdefault("frames", 1)
+    in_channels = kw.pop("in_channels", _channels(cfg, 6) * kw["frames"])
+    return PrithviSegmenter(in_channels, n_classes=n, **kw)
 
 
 def _img(cfg, k=None, c=None):
@@ -234,6 +252,13 @@ FAMILIES = {
         lambda cfg: (_onehot_labels(cfg),
                      _map_labels(cfg, c=max(2, (cfg.num_classes if cfg else 8) // 2))),
         _hierarchical_loss,
+    ),
+    "prithvi": Family(
+        "prithvi", _build_prithvi,
+        lambda cfg: (_img(cfg),),
+        _map_labels,
+        _bce,
+        mae_init_,
     ),
 }
 

@@ -62,6 +62,7 @@ def test_hann_stitch_kernel_matches_plain(cuda, k, buf, rows, cols, c_out):
     (512, 128, 4, 4, 1),  # the solar serving shape
     (256, 128, 8, 8, 1),  # the change serving shape: side 1.5 k
     (512, 256, 8, 8, 1),  # the parking serving shape: 64 x 768² -> 4608²
+    (176, 48, 21, 21, 1),  # the HLS sweep's tile: 21 x 21 chips of 224² at stride 176
 ])
 def test_hann_stitch_kernel_bit_equal(cuda, k, buf, rows, cols, c_out, apply_window):
     side = k + buf
@@ -641,3 +642,93 @@ def test_folded_float32_unet_under_bf16_autocast_keeps_the_unfused_ops(cuda):
         with torch.autocast("cuda", dtype=torch.bfloat16):
             want = unfused_forward(net, chips)
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _prithvi(cuda, **overrides):
+    """The configuration's Prithvi-EO-2.0 (``overrides`` replacing keys),
+    its seeded float32 weights with the head's BatchNorm calibrated, the
+    program's model served in bfloat16 channels-last, and two 224² chips."""
+    import json
+
+    from test_torch_prithvi import REPO
+
+    from perfbench import inputs
+    from perfbench.families import prithvi as family
+    from perfbench.reference.layers import Ops, exact_float32
+    from satellite_computervision_tpu_torch.predict import to_serving
+
+    cfg = json.loads((REPO / "perfbench" / "configs" / "prithvi_eo2_300m.json").read_text())
+    model = dict(cfg["model"], **overrides)
+    spec = dict(json.loads((REPO / "perfbench" / "traffic" / "hls_tile_sweep.json").read_text())
+                ["imagery"])
+    w = inputs.draw_weights(family.reference.specs(model), inputs.generator(11, "weights", cuda),
+                            cuda)
+    x = inputs.imagery(inputs.generator(11, "chips", cuda), 2, 224, 24, spec, cuda).round()
+    with exact_float32(), torch.no_grad():
+        family.reference.logits(w, x, model, Ops("float32"), bn="calibrate")
+    net = to_serving(family.build(model, cuda, w).eval(), cuda)
+    return model, w, net, x
+
+
+def _gap(got, want):
+    return float((got.float() - want).norm() / want.norm())
+
+
+def test_prithvi_block_and_encoder_in_bf16_against_the_float32_reference(cuda):
+    """At the published widths, one block and the whole 24-layer encoder
+    served in bfloat16 against the plain reference in float32 (TF32 off),
+    as relative norms of the tokens' difference. bfloat16 keeps 8 bits
+    (a relative rounding of 2^-9 a value): one block moved its tokens by
+    0.0033 and the encoder by 0.0113 (H100); the limits leave 3x and 2.6x
+    of room. The reference in float8 (3 bits) moved the encoder by 0.082,
+    2.7x its limit: a program that computed in float8 would fail it."""
+    from perfbench.reference import prithvi as ref
+    from perfbench.reference.layers import Ops, exact_float32
+
+    model, w, net, x = _prithvi(cuda)
+    enc = net.encoder
+    with torch.no_grad():
+        tokens = enc.embed(net._standardise(x).to(torch.bfloat16), model["frames"])
+        with exact_float32():
+            want_block = ref.block(tokens.float(), w, "encoder.blocks.0", model["heads"],
+                                   Ops("float32"))
+            want = ref.encode(w, x, model, Ops("float32"))
+            control = ref.encode(w, x, model, Ops("float8"))
+        block, encoded = _gap(enc.blocks[0](tokens), want_block), _gap(enc(tokens), want)
+    print(f"prithvi bf16 gaps: block {block:.5f}, encoder {encoded:.5f}; "
+          f"float8 encoder {_gap(control, want):.5f}")
+    assert block < 0.01 and encoded < 0.03
+    assert _gap(control, want) > 0.03
+
+
+def test_prithvi_sdpa_launches_match_the_encoder_span(cuda):
+    """Every ``vit.encoder`` span's ``layers`` is one attention kernel on
+    the card (the count ``sdpa_roofline`` holds the trace to), and the
+    reader gives a share of the roofline, above 0 and at or under 100 %."""
+    from test_torch_prithvi import REPO
+
+    from perfbench import manifest, tracing
+    from satellite_computervision_tpu_torch.utils.profiling import span_log
+
+    reader = manifest.load_module(REPO / "perfbench" / "layer_metrics" / "sdpa_roofline.py",
+                                  "sdpa_roofline")
+    model, _, net, x = _prithvi(cuda, depth=2)
+    x = torch.cat([x, x])
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        with tracing.profiled(cuda) as prof:
+            with tracing.span("window"):
+                for _ in range(3):
+                    net(x)
+                torch.cuda.synchronize()
+    table = prof["table"]
+    names = sorted({n for k, n, *_ in table["events"] if k == "kernel"
+                    and any(s in n.lower() for s in reader.NEEDLES)})
+    count, seconds = reader.attention_kernels(table)
+    share = reader.read(table, {"device_name": torch.cuda.get_device_name(cuda)})
+    print(f"attention kernels {names}: {count} in {seconds * 1e3:.3f} ms; sdpa_roofline {share}")
+    logged = [r.attrs for r in span_log() if r.name == "vit.encoder"]
+    assert len(logged) == 3 and count == sum(a["layers"] for a in logged) == 3 * 2
+    assert logged[0]["tokens"] == 785 and logged[0]["dtype"] == "bfloat16"
+    assert share is not None and 0 < share <= 100
