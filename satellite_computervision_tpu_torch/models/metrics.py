@@ -10,16 +10,32 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
+
+
+_ROW = 4096  # pairs a row of partial counts takes (many rows: few atomic adds on one bin)
 
 
 def confusion_matrix(y_true, y_pred, num_classes: int) -> torch.Tensor:
-    """Dense (num_classes, num_classes) float32 counts, rows = true class
-    (``torch.bincount`` on the inputs' device)."""
+    """Dense (num_classes, num_classes) float32 counts, rows = true class.
+
+    Each pair's flat index ``true * n + pred`` is counted with
+    ``scatter_add_`` into fixed int64 bins on the inputs' device, one row
+    of n² + 1 bins for each ``_ROW`` pairs, and the rows summed; an index
+    outside [0, n²) goes to the spare bin and is dropped. ``torch.bincount``
+    would read the largest index back to the host on CUDA, which drains a
+    step's queue and breaks a CUDA graph's capture; one row of bins would
+    put every pair's atomic add on n² addresses (4x the time on an H100)."""
+    n = num_classes
     y_true = torch.as_tensor(y_true).reshape(-1).long()
     y_pred = torch.as_tensor(y_pred).reshape(-1).long().to(y_true.device)
-    counts = torch.bincount(y_true * num_classes + y_pred,
-                            minlength=num_classes * num_classes)
-    return counts[: num_classes * num_classes].reshape(num_classes, num_classes).float()
+    flat = y_true * n + y_pred
+    flat = torch.where((flat >= 0) & (flat < n * n), flat, n * n)
+    rows = -(-flat.numel() // _ROW)
+    flat = F.pad(flat, (0, rows * _ROW - flat.numel()), value=n * n).view(rows, _ROW)
+    counts = torch.zeros((rows, n * n + 1), dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    return counts.sum(0)[: n * n].reshape(n, n).float()
 
 
 def normalize_confusion_matrix(cm) -> torch.Tensor:

@@ -25,10 +25,16 @@ but not used; :func:`load_remote_weights` fetches such a blob by URL.
 every rank of a process group writes together, and ``scv_meta.json``
 ``{"step", "metrics"}``, which rank 0 writes. It does not read a JAX
 orbax directory: that needs orbax, which imports JAX.
+
+Both backends restore an optimizer under :func:`keeping_own_flags`: a
+CUDA state's Adam is ``capturable`` and ``fused`` (``train/trainer.py``),
+and a checkpoint of a CPU Adam, or of one written before the step was
+graphed, loads into it and leaves it so.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import urllib.request
@@ -164,6 +170,26 @@ def load_remote_weights(url: str, model: Model) -> Model:
     return model
 
 
+_OWN_FLAGS = ("capturable", "fused")  # how an optimizer runs, not what it computes
+
+
+@contextlib.contextmanager
+def keeping_own_flags(optimizer: torch.optim.Optimizer):
+    """Load an optimizer state inside: each parameter group keeps its own
+    ``capturable`` and ``fused`` flags (``load_state_dict`` takes the
+    writer's), and each step count moves where they keep it: the
+    parameter's device when capturable or fused, else the CPU."""
+    flags = [{k: g[k] for k in _OWN_FLAGS if k in g} for g in optimizer.param_groups]
+    yield
+    for group, own in zip(optimizer.param_groups, flags):
+        group.update(own)
+        on_device = group.get("capturable") or group.get("fused")
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if isinstance(state.get("step"), torch.Tensor):
+                state["step"] = state["step"].to(p.device if on_device else "cpu")
+
+
 def _dcp_state(state) -> Dict[str, Any]:
     from torch.distributed.checkpoint.state_dict import get_state_dict
 
@@ -205,8 +231,9 @@ def load_checkpoint_dcp(path: str, state) -> Tuple[Any, Dict]:
 
     target = _dcp_state(state)
     dcp.load(target, checkpoint_id=path)
-    set_state_dict(state.model, state.optimizer, model_state_dict=target["model"],
-                   optim_state_dict=target["optimizer"])
+    with keeping_own_flags(state.optimizer):
+        set_state_dict(state.model, state.optimizer, model_state_dict=target["model"],
+                       optim_state_dict=target["optimizer"])
     meta: Dict[str, Any] = {}
     meta_path = os.path.join(path, "scv_meta.json")
     if _rank() == 0 and os.path.exists(meta_path):
@@ -260,7 +287,8 @@ class CheckpointManager:
         blob = _read(self.root, which)
         unwrap(state.model).load_state_dict(blob["state_dict"])
         if "optimizer" in blob:
-            state.optimizer.load_state_dict(blob["optimizer"])
+            with keeping_own_flags(state.optimizer):
+                state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob.get("step", blob["meta"].get("step", 0)))
         return state, blob["meta"]
 

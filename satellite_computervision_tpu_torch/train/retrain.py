@@ -22,11 +22,12 @@ import torch
 
 from satellite_computervision_tpu_torch.models.bridge import flax_to_torch
 from satellite_computervision_tpu_torch.train.checkpoint import (
+    keeping_own_flags,
     load_remote_weights,
     read_flax_checkpoint,
     unwrap,
 )
-from satellite_computervision_tpu_torch.train.trainer import Trainer, TrainState
+from satellite_computervision_tpu_torch.train.trainer import Trainer, TrainState, adam
 
 
 def freeze_mask(model: torch.nn.Module, trainable_names: Iterable[str]) -> Dict[str, bool]:
@@ -47,7 +48,8 @@ def _restore(path: str, state: TrainState) -> None:
         blob = torch.load(pt, map_location="cpu", weights_only=True)
         model.load_state_dict(blob["state_dict"])
         if "optimizer" in blob:
-            state.optimizer.load_state_dict(blob["optimizer"])
+            with keeping_own_flags(state.optimizer):
+                state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob.get("step", blob["meta"].get("step", 0)))
     else:
         tree, _ = read_flax_checkpoint(path)
@@ -76,7 +78,7 @@ def retrain(
       the flax blob at ``weights_url``
       (``train/checkpoint.py::load_remote_weights``);
     - with ``learning_rate`` and/or ``freeze_to`` (e.g. ``"head"``), a new
-      Adam at ``learning_rate`` (9e-4 when only ``freeze_to`` is given)
+      Adam (``trainer.adam``) at ``learning_rate`` (9e-4 when only ``freeze_to`` is given)
       over the parameters left trainable;
     - evaluate on ``eval_iter`` so the best metric starts at the restored
       model's.
@@ -92,9 +94,7 @@ def retrain(
         frozen = freeze_mask(state.model, {freeze_to}) if freeze_to is not None else {}
         params = [p for name, p in unwrap(state.model).named_parameters()
                   if not frozen.get(name, False)]
-        state.optimizer = torch.optim.Adam(
-            params, lr=learning_rate if learning_rate is not None else 9e-4,
-            betas=(0.9, 0.999), eps=1e-8)
+        state.optimizer = adam(params, learning_rate if learning_rate is not None else 9e-4)
 
     trainer = Trainer(state, loss_fn, pred_key=pred_key, num_classes=num_classes,
                       monitor=monitor, **trainer_kwargs)

@@ -8,6 +8,7 @@ JAX, hence ``--noconftest``):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -732,3 +733,206 @@ def test_prithvi_sdpa_launches_match_the_encoder_span(cuda):
     assert len(logged) == 3 and count == sum(a["layers"] for a in logged) == 3 * 2
     assert logged[0]["tokens"] == 785 and logged[0]["dtype"] == "bfloat16"
     assert share is not None and 0 < share <= 100
+
+
+def _train_model(family: str):
+    """A small solar U-Net (plain stem) or DeepLab v3+ on one ResNet block
+    a stage, seeded, channels-last as the training cells hold them."""
+    torch.manual_seed(3)
+    if family == "unet":
+        model = UNet(6, n_classes=1, filters=(8, 16, 32), factors=(2, 2, 2), head="sigmoid")
+    else:
+        model = DeepLabV3Plus(4, n_classes=1, stage_sizes=(1, 1, 1, 1), aspp_features=32)
+    return model.to(memory_format=torch.channels_last)
+
+
+def _train_batches(cuda, family: str, n: int, batch: int = 4, side: int = 64):
+    bands = 6 if family == "unet" else 4
+    g = torch.Generator().manual_seed(4)
+    return [(torch.randn((batch, side, side, bands), generator=g).to(cuda),
+             (torch.rand((batch, side, side, 1), generator=g) > 0.7).float().to(cuda))
+            for _ in range(n)]
+
+
+def _train_steps(cuda, family, batches, monkeypatch, graphed: bool):
+    """Steps of a fresh state over ``batches`` (bf16 autocast, weighted
+    BCE, the trainer's Adam): the step function, the state and each step's
+    returned loss and confusion matrix. ``graphed=False`` never captures."""
+    from satellite_computervision_tpu_torch.models import losses
+    from satellite_computervision_tpu_torch.train import trainer
+
+    state = trainer.create_train_state(_train_model(family).to(cuda))
+    step = trainer.make_train_step(
+        lambda y, p: losses.weighted_bce(y, p, pos_weight=2.0, logits=True),
+        compute_dtype=torch.bfloat16)
+    with monkeypatch.context() as m:
+        if not graphed:
+            m.setattr(trainer, "EAGER_STEPS", 1 << 30)
+        outs = [step(state, b) for b in batches]
+    torch.cuda.synchronize()
+    return step, state, outs
+
+
+def _train_state_tensors(state) -> dict:
+    """Parameters, BatchNorm buffers and Adam's moments and step counts."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for i, p in enumerate(state.model.parameters()):
+        for k, v in state.optimizer.state[p].items():
+            out[f"adam.{i}.{k}"] = v
+    return out
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms, so two runs of one step compare
+    bit for bit."""
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+
+
+def _resize_by_matmul(x, size):
+    """``deeplab.resize_bilinear`` (half-pixel centres, clamped at the
+    edges) as two matrix products, whose gradient sums in a fixed order:
+    the interpolation's own backward adds with atomics, so two eager runs
+    of DeepLab differ in their last bits, and no deterministic version
+    exists."""
+    def weights(n_in, n_out):  # made on the device: a copy from the host breaks a capture
+        at = dict(dtype=torch.float64, device=x.device)
+        src = ((torch.arange(n_out, **at) + 0.5) * n_in / n_out - 0.5).clamp(0, n_in - 1)
+        lo = src.floor()
+        col = torch.arange(n_in, **at)
+        return ((col == lo[:, None]) * (1 - (src - lo))[:, None]
+                + (col == (lo + 1).clamp(max=n_in - 1)[:, None]) * (src - lo)[:, None]).float()
+
+    return torch.einsum("oh,nchw,pw->ncop", weights(x.shape[2], size[0]), x,
+                        weights(x.shape[3], size[1]))
+
+
+@pytest.mark.parametrize("family", ["unet", "deeplab"])
+def test_graphed_train_steps_equal_eager_steps(cuda, deterministic, monkeypatch, family):
+    """Eight steps from one seed, replayed from a CUDA graph and run
+    eagerly, both with the capturable Adam ``create_train_state`` builds on
+    the card: two eager steps, one capture whose first replay does its
+    work, five replays. Parameters, Adam's moments and step counts,
+    BatchNorm's running statistics, the losses and the confusion matrices
+    agree bit for bit; a short last batch then runs eagerly and agrees
+    too. DeepLab's bilinear resize runs as matrix products
+    (:func:`_resize_by_matmul`), so that each side repeats bit for bit."""
+    from satellite_computervision_tpu_torch.models import deeplab
+
+    monkeypatch.setattr(deeplab, "resize_bilinear", _resize_by_matmul)
+    batches = _train_batches(cuda, family, 8)
+    short = _train_batches(cuda, family, 1, batch=3)[0]
+    runs = {}
+    for graphed in (True, False):
+        step, state, outs = _train_steps(cuda, family, batches, monkeypatch, graphed)
+        assert state.optimizer.param_groups[0]["capturable"]
+        counts = (step.captures, step.replays, step.eager)
+        assert counts == ((1, 6, 2) if graphed else (0, 0, 8))
+        outs.append(step(state, short))
+        assert step.eager == (3 if graphed else 9)
+        torch.cuda.synchronize()
+        runs[graphed] = (_train_state_tensors(state), outs)
+    (tensors, outs), (want_tensors, want_outs) = runs[True], runs[False]
+    assert tensors.keys() == want_tensors.keys()
+    for k, v in want_tensors.items():
+        assert torch.equal(tensors[k], v), k
+    for got, want in zip(outs, want_outs):
+        assert torch.equal(got["loss"], want["loss"]) and torch.equal(got["cm"], want["cm"])
+    assert all(o["cm"].sum() == 4 * 64 * 64 for o in outs[:-1]) and outs[-1]["cm"].sum() == 3 * 64 * 64
+
+
+@pytest.mark.parametrize("family", ["unet", "deeplab"])
+def test_a_step_under_flop_counting_runs_eagerly(cuda, monkeypatch, family):
+    """Once the graph is captured, a step under ``FlopCounterMode`` runs
+    eagerly and counts the FLOPs an eager step counts; replays go on
+    after it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    batches = _train_batches(cuda, family, 5)
+    counted = {}
+    for graphed in (True, False):
+        step, state, _ = _train_steps(cuda, family, batches[:4], monkeypatch, graphed)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            step(state, batches[4])
+        counted[graphed] = counter.get_total_flops()
+        if graphed:
+            assert (step.captures, step.replays, step.eager) == (1, 2, 3)
+            step(state, batches[0])
+            assert step.replays == 3
+    assert counted[True] == counted[False] > 0
+
+
+@pytest.mark.parametrize("backend", ["pt", "dcp"])
+def test_create_train_state_on_the_card_is_capturable_and_loads_old_checkpoints(cuda, tmp_path,
+                                                                                 backend):
+    """A CUDA model's Adam is capturable and fused, with the CPU one's
+    settings; an optimizer state saved from a non-capturable Adam loads
+    into it through either checkpoint backend and it stays so, its step
+    counts on the card."""
+    from satellite_computervision_tpu_torch.train.checkpoint import CheckpointManager
+    from satellite_computervision_tpu_torch.train.trainer import create_train_state
+
+    cpu = create_train_state(_train_model("unet"))
+    cpu.model(torch.randn(2, 32, 32, 6))["logits"].sum().backward()
+    cpu.optimizer.step()
+    CheckpointManager(str(tmp_path), backend=backend).save(cpu, step=1)
+    card = create_train_state(_train_model("unet").to(cuda))
+    group, old = card.optimizer.param_groups[0], cpu.optimizer.param_groups[0]
+    own = ("params", "capturable", "fused")
+    assert group["capturable"] and group["fused"] and not old["capturable"]
+    assert {k: v for k, v in group.items() if k not in own} == \
+        {k: v for k, v in old.items() if k not in own}
+    CheckpointManager(str(tmp_path), backend=backend).restore(card)
+    assert card.optimizer.param_groups[0]["capturable"] and card.optimizer.param_groups[0]["fused"]
+    for p, q in zip(card.model.parameters(), cpu.model.parameters()):
+        got, want = card.optimizer.state[p], cpu.optimizer.state[q]
+        assert got["step"].device.type == "cuda" and float(got["step"]) == float(want["step"])
+        assert torch.equal(got["exp_avg"].cpu(), want["exp_avg"])
+
+
+def test_a_step_that_reads_the_device_back_stays_eager(cuda, deterministic, monkeypatch):
+    """A loss that reads a value back to the host (``float(...)``) cannot
+    be captured: the capture fails with a warning, leaves the state as it
+    was, and the signature's steps run eagerly from then on, bit-equal to
+    steps that never tried. Random draws and memory used across streams
+    work after it as before."""
+    from satellite_computervision_tpu_torch.models import losses
+    from satellite_computervision_tpu_torch.train import trainer
+
+    def syncing(y, p):
+        return losses.weighted_bce(y, p, 2.0, logits=True) * (1.0 + 0.0 * float(p.detach().mean()))
+
+    batches = _train_batches(cuda, "unet", 6)
+    runs = {}
+    for graphed in (True, False):
+        state = trainer.create_train_state(_train_model("unet").to(cuda))
+        step = trainer.make_train_step(syncing, compute_dtype=torch.bfloat16)
+        with monkeypatch.context() as m:
+            if not graphed:
+                m.setattr(trainer, "EAGER_STEPS", 1 << 30)
+            with pytest.warns(RuntimeWarning, match="CUDA graph") if graphed else \
+                    contextlib.nullcontext():
+                outs = [step(state, b) for b in batches]
+        assert (step.captures, step.replays, step.eager) == (0, 0, 6)
+        assert torch.cuda.current_stream() == torch.cuda.default_stream()
+        runs[graphed] = (_train_state_tensors(state), outs)
+    for k, v in runs[False][0].items():
+        assert torch.equal(runs[True][0][k], v), k
+    for got, want in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(got["loss"], want["loss"]) and torch.equal(got["cm"], want["cm"])
+    torch.randn(8, device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    for _ in range(8):
+        with torch.cuda.stream(side):
+            t = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+        t.record_stream(torch.cuda.current_stream())
+        t.add_(1)
+        del t
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() - before <= 2 * (64 << 20)
