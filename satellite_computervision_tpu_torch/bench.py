@@ -102,12 +102,12 @@ import torch.nn.functional as F
 from satellite_computervision_tpu_torch import native
 from satellite_computervision_tpu_torch._device import resolve_device
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
-from satellite_computervision_tpu_torch.inference.staging import stage_to_device
 from satellite_computervision_tpu_torch.kernels import stitch
 from satellite_computervision_tpu_torch.models import UNet, fold_unet, flax_init_
 from satellite_computervision_tpu_torch.models.blocks import BN_MOMENTUM
 from satellite_computervision_tpu_torch.models.losses import weighted_bce
 from satellite_computervision_tpu_torch.ops.chips import generate_chip_indices
+from satellite_computervision_tpu_torch.staging import stage_to_device
 from satellite_computervision_tpu_torch.train.trainer import create_train_state, make_train_step
 
 KERNEL, BUFFER, BANDS = 256, 128, 4
@@ -873,7 +873,7 @@ def probe_train_geometry(device) -> int:
 
 def overlap_experiment(device) -> int:
     """--overlap: does staging the next stack of scenes on a thread (pinned
-    memory, a side stream: ``inference.staging``) hide its copy behind the
+    memory, a side stream: ``staging``) hide its copy behind the
     current stack's compute?"""
     rng = np.random.default_rng(0)
     stacks = [rng.integers(0, 3000, (N_SCENES, SCENE, SCENE, BANDS)).astype(np.uint16)

@@ -3,16 +3,17 @@
 Port of ``satellite_computervision_tpu/data/pipeline.py``. Host threads
 read and parse TFRecords into numpy batches (``ChipDataset``,
 ``_shuffled``, ``_batched``: the same order as the JAX package for a
-seed); :func:`prefetch_to_device` moves each batch to the device from
-pinned memory on a side CUDA stream while the previous step runs; the
-numeric preprocessing (:func:`make_preprocess_fn`) runs on the device on
-whole batches.
+seed); :func:`prefetch_to_device` moves each batch to the device through
+the serving engine's stager (``staging``: a pinned ring, a side CUDA
+stream) while the previous step runs; the numeric preprocessing
+(:func:`make_preprocess_fn`) runs on the device on whole batches.
 
 Spans (``utils.profiling.span``, recorded only while a ``torch.profiler``
 session runs), each with the batch's sequence number ``batch``:
-``train.batch`` (shuffle and stack) and ``train.stage`` (pinned copies,
-with their ``bytes``) on the prefetch thread, ``train.batch_wait`` on the
-consumer's; the returned preprocess runs in ``train.preprocess``.
+``train.batch`` (shuffle and stack), ``train.stage`` (pinned copies, with
+their ``bytes``; inside it ``train.ring_wait``) and ``train.stage_ahead``
+on the staging thread, ``train.batch_wait`` on the consumer's; the
+returned preprocess runs in ``train.preprocess``.
 
 ``make_preprocess_fn`` with per-chip, per-channel rescaling (``axes=(0,
 1)``, no ``moments``, no ``splits``) runs the hand-written CUDA
@@ -23,10 +24,7 @@ in one kernel call per batch. Other settings run the plain ops.
 
 from __future__ import annotations
 
-import itertools
-import queue
 import random
-import threading
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -40,6 +38,7 @@ from satellite_computervision_tpu_torch.kernels.preprocess import (
 from satellite_computervision_tpu_torch.ops.augment import aug_color, apply_morph
 from satellite_computervision_tpu_torch.ops.classes import one_hot as one_hot_encode
 from satellite_computervision_tpu_torch.ops.normalize import rescale_image
+from satellite_computervision_tpu_torch.staging import stage_to_device
 from satellite_computervision_tpu_torch.utils.profiling import span
 
 
@@ -213,65 +212,30 @@ def _shuffled(iterator, buffer_size: int, rng: random.Random):
 
 
 def prefetch_to_device(iterator, size: int = 2, device="cuda"):
-    """Background-thread prefetcher: host decode and the host-to-device copy
-    overlap the consumer's device work.
-
-    On CUDA each numpy batch is copied into pinned memory and sent with
-    ``non_blocking`` copies on a side stream; the consumer's stream waits
-    on an event recorded after the copies before it sees the batch, and
-    each tensor is marked as used on the consumer's stream so the caching
-    allocator does not hand its memory back to the side stream early. On
-    the CPU batches become tensors that share the numpy memory.
-
-    Worker errors propagate to the consumer. An abandoned generator leaves
-    the daemon thread blocked holding at most ``size`` batches."""
+    """Device batches from a stream of dicts of numpy arrays, staged on a
+    thread at most ``size`` batches ahead (``staging.stage_to_device``) so
+    host decode and the copies overlap the consumer's device work. Worker
+    errors re-raise in the consumer; closing the stream joins the thread."""
     device = resolve_device(device)
-    q: "queue.Queue" = queue.Queue(maxsize=size)
-    end, err = object(), object()
-    side = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def stage(item):
-        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in item.items()}
-        if side is None:
-            return tensors, None
-        with torch.cuda.stream(side):
-            out = {k: v.pin_memory().to(device, non_blocking=True) for k, v in tensors.items()}
-            event = torch.cuda.Event()
-            event.record(side)
-        return out, event
-
-    def worker():
-        it = iter(iterator)
-        try:
-            for n in itertools.count():
-                with span("train.batch", batch=n):
-                    item = next(it, end)
-                if item is end:
-                    break
-                n_bytes = sum(getattr(v, "nbytes", 0) for v in item.values())
-                with span("train.stage", batch=n, bytes=n_bytes):
-                    staged = stage(item)
-                q.put(staged)
-        except BaseException as e:  # propagate, don't truncate
-            q.put((err, e))
-        else:
-            q.put(end)
-
-    threading.Thread(target=worker, daemon=True).start()
-    for n in itertools.count():
-        with span("train.batch_wait", batch=n):
-            item = q.get()
-            if item is end:
+    def batches():
+        it, n = iter(iterator), 0
+        while True:
+            with span("train.batch", batch=n):
+                batch = next(it, None)
+            if batch is None:
                 return
-            if item[0] is err:
-                raise item[1]
-            tensors, event = item
-            if event is not None:
-                current = torch.cuda.current_stream(device)
-                current.wait_event(event)
-                for t in tensors.values():
-                    t.record_stream(current)
-        yield tensors
+            yield batch, None
+            n += 1
+
+    staged = stage_to_device(batches(), size, device, key="batch", stage="train.stage",
+                             ring_wait="train.ring_wait", ahead="train.stage_ahead",
+                             wait="train.batch_wait")
+    try:
+        for batch, _ in staged:
+            yield batch
+    finally:
+        staged.close()
 
 
 class TrainIterator:

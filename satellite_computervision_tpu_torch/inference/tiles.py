@@ -51,8 +51,8 @@ from satellite_computervision_tpu_torch.geo.geotiff import (
     GeoTiffStreamWriter,
     coerce_sample_dtype,
 )
-from satellite_computervision_tpu_torch.inference.staging import run_ahead, stage_to_device
 from satellite_computervision_tpu_torch.kernels.stitch import hann_stitch
+from satellite_computervision_tpu_torch.staging import run_ahead, stage_to_device
 from satellite_computervision_tpu_torch.utils.profiling import span
 
 

@@ -151,7 +151,7 @@ def test_compositing_defaults_to_cuda(no_cuda):
 
 
 def test_new_modules_are_covered():
-    for name in ("inference.staging", "inference.batch", "inference.mixer",
+    for name in ("staging", "inference.batch", "inference.mixer",
                  "inference.writers", "train.flax_msgpack", "models.siamese",
                  "data.chip_generators", "models.deeplab", "inference.tune",
                  "train.evaluate", "evaluate", "models.convlstm", "models.acnn",

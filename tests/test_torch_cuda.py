@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from satellite_computervision_tpu_torch.data.pipeline import make_preprocess_fn
+from satellite_computervision_tpu_torch.data.pipeline import make_preprocess_fn, prefetch_to_device
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 from satellite_computervision_tpu_torch.kernels import epilogue, preprocess, stitch
 from satellite_computervision_tpu_torch.models import DeepLabV3Plus, SiameseUNet, UNet
@@ -303,6 +303,35 @@ def test_predict_scenes_staging_on_card_equals_predict_scene(cuda, small_unet, p
     for scene, out in zip(scenes, got):
         assert isinstance(out, np.ndarray)
         np.testing.assert_array_equal(out, engine.predict_scene(scene).cpu().numpy())
+
+
+def test_prefetch_to_device_on_card_keeps_every_batch(cuda):
+    """Ten dict batches of three dtypes and three sizes through a ring of
+    size + 1 = 3 pinned buffers, reused and grown while the consumer holds
+    every earlier batch and keeps its stream busy: each array is its own
+    contiguous device tensor, equal to its host array."""
+    rng = np.random.default_rng(5)
+    batches = []
+    for i in range(10):
+        side = 256 + 128 * (i % 3)
+        weight = rng.normal(size=(4, side, 2 * side)).astype(np.float16)
+        batches.append({"bands": rng.normal(size=(4, side, side, 3)).astype(np.float32),
+                        "label": rng.integers(0, 2, (4, side, side)).astype(np.uint8),
+                        "weight": weight[..., ::2]})  # a strided view
+    a = torch.randn(2048, 2048, device=cuda)
+    held = []
+    for batch in prefetch_to_device(iter(batches), size=2, device=cuda):
+        held.append(batch)
+        for _ in range(4):  # the consumer's stream runs behind the copies
+            a = torch.tanh(a @ a)
+    torch.cuda.synchronize()
+    assert len(held) == 10
+    assert len({t.data_ptr() for b in held for t in b.values()}) == 30
+    for host, dev in zip(batches, held):
+        assert list(dev) == list(host)
+        for k, arr in host.items():
+            assert dev[k].device.type == "cuda" and dev[k].is_contiguous()
+            np.testing.assert_array_equal(dev[k].cpu().numpy(), arr)
 
 
 @pytest.fixture

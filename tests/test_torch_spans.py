@@ -227,7 +227,8 @@ def test_the_port_imports_and_traces_without_torchs_start_hook(tmp_path):
         start = autograd_profiler._run_on_profiler_start
         del autograd_profiler._run_on_profiler_start
         from satellite_computervision_tpu_torch.data import pipeline
-        from satellite_computervision_tpu_torch.inference import staging, tiles
+        from satellite_computervision_tpu_torch import staging
+        from satellite_computervision_tpu_torch.inference import tiles
         from satellite_computervision_tpu_torch.train import trainer
         from satellite_computervision_tpu_torch.utils import profiling
         assert not hasattr(autograd_profiler, "_run_on_profiler_start")
@@ -256,7 +257,7 @@ def test_an_abandoned_stream_stops_producing_at_once():
     without."""
     import time
 
-    from satellite_computervision_tpu_torch.inference.staging import run_ahead
+    from satellite_computervision_tpu_torch.staging import run_ahead
 
     for ahead in (None, "serve.result_ahead"):
         produced = []

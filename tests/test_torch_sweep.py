@@ -1,7 +1,7 @@
 """The port's multi-scene paths — ``predict_scene_batch``, the pipelined
 ``predict_scenes`` (staging, dispatch and read-back threads) and the
-staging helpers — against the JAX engine and the port's own single-scene
-path (mirrors tests/test_inference_batch.py and
+staging helpers, which training's batches go through too — against the
+JAX engine and the port's own single-scene path (mirrors tests/test_inference_batch.py and
 tests/test_inference.py::test_engine_nodata_cull_pipelined). Toy models:
 rtol 1e-5 / atol 1e-6."""
 
@@ -15,8 +15,9 @@ import torch
 import jax.numpy as jnp
 
 from satellite_computervision_tpu.inference import TiledInferenceEngine as JaxEngine
+from satellite_computervision_tpu_torch.data.pipeline import TrainIterator, prefetch_to_device
 from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
-from satellite_computervision_tpu_torch.inference.staging import run_ahead, stage_to_device
+from satellite_computervision_tpu_torch.staging import run_ahead, stage_to_device
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 CPU = torch.device("cpu")
@@ -163,14 +164,26 @@ def test_predict_scenes_whole_mode_and_lists(rng):
             scene)), **TOL)
 
 
-def test_stage_to_device_cpu_keeps_order_tags_and_strides(rng):
+@pytest.mark.parametrize("as_dict", [False, True], ids=["array", "dict"])
+def test_stage_to_device_cpu_keeps_order_tags_and_strides(rng, as_dict):
     base = rng.normal(size=(6, 40, 30, 2)).astype(np.float32)
-    items = [(base[i, ::2], f"tag{i}") for i in range(6)]  # strided views
+    labels = rng.integers(0, 2, size=(6, 40, 30)).astype(np.uint8)
+
+    def item(i):  # strided views
+        return {"x": base[i, ::2], "y": labels[i, :, ::3]} if as_dict else base[i, ::2]
+
+    items = [(item(i), f"tag{i}") for i in range(6)]
     out = list(stage_to_device(iter(items), 2, CPU))
     assert [t for _, t in out] == [f"tag{i}" for i in range(6)]
-    for (arr, _), (tensor, _) in zip(items, out):
-        assert tensor.is_contiguous()
-        np.testing.assert_array_equal(tensor.numpy(), arr)
+    for (host, _), (staged, _) in zip(items, out):
+        if as_dict:
+            assert list(staged) == ["x", "y"]
+            pairs = [(host[k], staged[k]) for k in host]
+        else:
+            pairs = [(host, staged)]
+        for arr, tensor in pairs:
+            assert tensor.is_contiguous() and tensor.dtype == torch.from_numpy(arr).dtype
+            np.testing.assert_array_equal(tensor.numpy(), arr)
 
 
 def test_run_ahead_bounds_its_lead_and_stops_on_close():
@@ -190,3 +203,31 @@ def test_run_ahead_bounds_its_lead_and_stops_on_close():
     it.close()
     assert not _wait_for_no_new_threads(before)
     assert len(produced) <= 5
+
+
+class _Chips:
+    feature_names = ["a"]
+
+    def __iter__(self):
+        for i in range(8):
+            yield {"a": np.full((4, 4), i, np.float32)}
+
+
+@pytest.mark.parametrize("stream", ["TrainIterator", "prefetch_to_device"])
+def test_closing_a_training_stream_stops_and_joins_its_thread(stream):
+    """Training's batches go through the stager: a closed stream, its
+    thread blocked on a full queue, leaves no thread behind."""
+    def endless():
+        while True:
+            yield {"a": np.zeros((2, 4, 4), np.float32)}
+
+    before = {t.ident for t in threading.enumerate()}
+    if stream == "TrainIterator":
+        it = iter(TrainIterator(_Chips(), batch_size=2, shuffle_buffer=1, prefetch=1,
+                                device="cpu"))
+    else:
+        it = prefetch_to_device(endless(), size=1, device="cpu")
+    assert next(it)["a"].shape == (2, 4, 4)
+    time.sleep(0.2)  # the thread fills the queue and blocks
+    it.close()
+    assert not _wait_for_no_new_threads(before)
