@@ -22,9 +22,10 @@ line):
    phantom chip row each side and the whole grid's row weights, timed; and
    landcover's scene eval, 16 x 384² x 8 softmax channels into a 1280² x 8
    canvas, timed; and the Prithvi ViT's HLS tile, 21 x 21 chips of 224² at
-   stride 176 into a 3872² canvas, timed); the conv epilogues (``bias_relu_``, ``cat_affine_relu``)
-   bit-equal in bf16 at the solar sweep's 640² and 40² sites, timed beside
-   the unfused ops they replace (``library_ms``), and at a ragged shape.
+   stride 176 into a 3872² canvas, timed); the conv epilogues (``bias_relu_``,
+   ``bias_relu_pool_``, ``cat_affine_relu``) bit-equal in bf16 at the solar
+   sweep's 640² and 40² sites (the pool also at 320²), timed beside the
+   unfused ops they replace (``library_ms``), and at a ragged shape.
    ``ms``,
    ``plain_ms``
    and ``library_ms`` are on one clock: CUDA events around back-to-back
@@ -476,13 +477,14 @@ def preprocess_case(torch, pre, shape, n_color, augment, gen, timed, hard=False)
     return out
 
 
-def epilogue_case(torch, ep, b, side, c_skip, c_up=None, timed=True):
+def epilogue_case(torch, ep, b, side, c_skip, c_up=None, timed=True, pool=False):
     """The conv-epilogue kernels on the card against their plain versions,
     bf16 channels-last: ``bias_relu_`` on a (b, c_skip, side, side) conv
-    output, or with ``c_up`` ``cat_affine_relu`` of a skip and an up of
-    ``c_up`` channels; bit-equal. ``library_ms`` is the unfused op
-    sequence the served U-Net ran before (a conv's bias ``add_``, then
-    ``relu``; the up's ``add_``, ``cat``, mul, add, ``relu``)."""
+    output, with ``pool`` ``bias_relu_pool_`` on it, or with ``c_up``
+    ``cat_affine_relu`` of a skip and an up of ``c_up`` channels;
+    bit-equal. ``library_ms`` is the op sequence the served U-Net ran
+    before (a conv's bias ``add_``, then ``relu``; ``bias_relu_`` then
+    ``max_pool2d``; the up's ``add_``, ``cat``, mul, add, ``relu``)."""
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(side + c_skip)
 
@@ -493,7 +495,23 @@ def epilogue_case(torch, ep, b, side, c_skip, c_up=None, timed=True):
     def vec(n):
         return torch.randn(n, generator=g, device=dev).to(bf16)
 
-    if c_up is None:
+    if pool:
+        y, bias = act(c_skip), vec(c_skip)
+        want = ep.bias_relu_pool_reference(y.clone(memory_format=torch.channels_last), bias)
+        got = ep.bias_relu_pool_(y.clone(memory_format=torch.channels_last), bias)
+        want, got = torch.cat([t.flatten() for t in want]), torch.cat([t.flatten() for t in got])
+        # y read and written once, the pooled quarter written once
+        name, n_bytes = "bias_relu_pool_kernel", 2 * y.nbytes + y.nbytes // 4
+
+        def kernel():
+            ep.bias_relu_pool_(y, bias)
+
+        def library():
+            torch.nn.functional.max_pool2d(ep.bias_relu_(y, bias), 2, 2)
+
+        def plain():
+            ep.bias_relu_pool_reference(y, bias)
+    elif c_up is None:
         y, bias = act(c_skip), vec(c_skip)
         want = ep.bias_relu_reference(y.clone(memory_format=torch.channels_last), bias)
         got = ep.bias_relu_(y.clone(memory_format=torch.channels_last), bias)
@@ -1679,6 +1697,7 @@ def zero_epilogues():
     from satellite_computervision_tpu_torch.kernels import epilogue
 
     epilogue.bias_relu_.launches = epilogue.cat_affine_relu.launches = 0
+    epilogue.bias_relu_pool_.launches = 0
 
 
 def folded_epilogues(path, device, counts=None):
@@ -3526,11 +3545,16 @@ def main():
                   for c in pre_small + list(pre_path.values()) + [pre_hard, pre_streamed])
     check(pre_err <= tol, f"fused_preprocess disagrees with its plain version: {pre_err}")
 
-    # the conv epilogues at the solar sweep's 640² and 40² sites (16 chips)
-    # and its largest and smallest concatenations
+    # the conv epilogues at the solar sweep's 640² and 40² sites (16 chips),
+    # its largest, second and smallest pools, and its largest and smallest
+    # concatenations
     epi = [epilogue_case(torch, ep, 16, 640, 32), epilogue_case(torch, ep, 16, 40, 512),
+           epilogue_case(torch, ep, 16, 640, 32, pool=True),
+           epilogue_case(torch, ep, 16, 320, 64, pool=True),
+           epilogue_case(torch, ep, 16, 40, 512, pool=True),
            epilogue_case(torch, ep, 16, 640, 32, 32), epilogue_case(torch, ep, 16, 40, 512, 512),
            epilogue_case(torch, ep, 3, 7, 24, timed=False),
+           epilogue_case(torch, ep, 3, 8, 24, timed=False, pool=True),
            epilogue_case(torch, ep, 3, 7, 16, 8, timed=False)]
     emit("kernels", name="conv_epilogue", cases=epi)
     check(all(c["bit_equal"] for c in epi),

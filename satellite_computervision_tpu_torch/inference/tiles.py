@@ -29,7 +29,8 @@ Each stage is a span (``utils.profiling.span``, recorded only while a
 ``torch.profiler`` session runs): ``serve.scene`` around one scene, with
 ``serve.input``, ``serve.forward`` (one per chip batch: ``chips`` real,
 ``padded`` repeated, ``kernels`` the hand-written kernels it launched,
-``kernels.launches``) and ``serve.stitch`` inside it; ``predict_scenes`` adds
+``kernels.launches``, and ``pooled`` those of them that pooled an encoder's
+output, ``epilogue.bias_relu_pool_``) and ``serve.stitch`` inside it; ``predict_scenes`` adds
 ``serve.host_scene`` on the staging thread, ``serve.readback`` and
 ``serve.result_ahead`` on the dispatch thread and ``serve.result_wait``
 on the caller's, each with the scene's sequence number ``scene``.
@@ -51,6 +52,7 @@ from satellite_computervision_tpu_torch.geo.geotiff import (
     GeoTiffStreamWriter,
     coerce_sample_dtype,
 )
+from satellite_computervision_tpu_torch.kernels import epilogue
 from satellite_computervision_tpu_torch.kernels.stitch import hann_stitch
 from satellite_computervision_tpu_torch.staging import run_ahead, stage_to_device
 from satellite_computervision_tpu_torch.utils.profiling import span
@@ -258,12 +260,13 @@ class TiledInferenceEngine:
         for g in range(0, len(corners), bsz):
             real = min(bsz, max(n - g, 0))
             with span("serve.forward", chips=real, padded=bsz - real) as s:
-                launched = kernels.launches()
+                launched, pooled = kernels.launches(), epilogue.bias_relu_pool_.launches
                 chips = torch.stack(
                     [padded[i][y : y + side, x : x + side] for i, y, x in corners[g : g + bsz]]
                 )
                 preds.append(self.predict_fn(chips).float())
-                s.set(kernels=kernels.launches() - launched)
+                s.set(kernels=kernels.launches() - launched,
+                      pooled=epilogue.bias_relu_pool_.launches - pooled)
         return torch.cat(preds)
 
     def _stitch(self, preds, h, w, rows, cols, prepadded=False):
@@ -311,9 +314,10 @@ class TiledInferenceEngine:
         with span("serve.input"):
             x = self._input(scene, prepadded)
         with span("serve.forward", chips=1, padded=0) as s:
-            launched = kernels.launches()
+            launched, pooled = kernels.launches(), epilogue.bias_relu_pool_.launches
             pred = self.predict_fn(x[None])[0].float()
-            s.set(kernels=kernels.launches() - launched)
+            s.set(kernels=kernels.launches() - launched,
+                  pooled=epilogue.bias_relu_pool_.launches - pooled)
         return self._finish(pred[half : half + h, half : half + w])
 
     def _run(self, scene, prepadded=False, cull=False, valid_chips=None) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The served U-Net's conv epilogues, one pass each: bias + ReLU in place
-(:func:`bias_relu_`), and the decoder's concatenation + folded-BatchNorm
-affine + ReLU (:func:`cat_affine_relu`).
+(:func:`bias_relu_`), the same followed by the encoder's 2x2 max-pool
+(:func:`bias_relu_pool_`), and the decoder's concatenation +
+folded-BatchNorm affine + ReLU (:func:`cat_affine_relu`).
 
-Replaces no TPU kernel: XLA fused these per-channel ops into the convs'
+Replaces no TPU kernel: XLA fused these ops into the convs'
 outputs (``satellite_computervision_tpu/models/blocks.py``). In eager
 PyTorch each is its own pass over the activation, and those passes took
 more of the served U-Net's device time than its convs. The kernel is bound
@@ -14,7 +15,7 @@ by bytes; ``csrc/conv_epilogue.cu`` says how its design meets that.
   kernel replaces, which the tests and ``chip_smoke.py`` hold the kernel
   against.
 
-Both take NCHW-shaped activations in channels-last memory, bfloat16 or
+All take NCHW-shaped activations in channels-last memory, bfloat16 or
 float32, with channel counts that are multiples of 8 (a 16-byte vector
 then lies in one pixel and one source).
 """
@@ -78,23 +79,28 @@ def _check_device(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
+# each kernel's C arguments before the stream: pointers, then sizes
+_ARGTYPES = {
+    "bias_relu": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int],
+    "bias_relu_pool": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int],
+    "cat_affine_relu": [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    """The C entry point ``name``, built and loaded at the first call."""
+def _entry(name: str, dtype: torch.dtype):
+    """The C entry point of kernel ``name`` for ``dtype``, built and loaded
+    at the first call."""
     from satellite_computervision_tpu_torch.kernels import _build
 
-    fn = getattr(_build.load("conv_epilogue"), name)
-    if name.startswith("bias_relu"):
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    else:
-        fn.argtypes = ([ctypes.c_void_p] * 6
-                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn = getattr(_build.load("conv_epilogue"), f"{name}_{_DTYPES[dtype]}")
+    fn.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(name: str, x: torch.Tensor, *args) -> None:
-    fn = _entry(f"{name}_{_DTYPES[x.dtype]}")
+    fn = _entry(name, x.dtype)
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -131,6 +137,43 @@ def bias_relu_(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 
 bias_relu_.launches = 0
+
+
+def bias_relu_pool_reference(y: torch.Tensor, bias: torch.Tensor):
+    """Plain PyTorch version: :func:`bias_relu_reference` in place, then
+    ``max_pool2d(y, 2, 2)``; returns ``(pooled, y)``."""
+    y = bias_relu_reference(y, bias)
+    return F.max_pool2d(y, 2, 2), y
+
+
+def bias_relu_pool_(y: torch.Tensor, bias: torch.Tensor):
+    """``y = relu(y + bias[c])`` in place on a conv's output ``y`` (B, C,
+    H, W), channels-last with H and W even, and its 2x2 stride-2 max-pool
+    as a new (B, C, H/2, W/2) channels-last tensor; returns ``(pooled,
+    y)``, bit-equal to :func:`bias_relu_` then ``F.max_pool2d(y, 2, 2)``
+    (NaN and signed zeros as ATen's pool takes them) and with no indices.
+
+    CUDA tensors go through the hand-written kernel (each launch adds one
+    to ``bias_relu_pool_.launches``); CPU tensors through
+    :func:`bias_relu_pool_reference`."""
+    _check_device("bias_relu_pool_", y)
+    _check_activation("y", y)
+    _check_vector("bias", bias, y.shape[1], y)
+    b, c, h, w = y.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"y is {h}x{w}; the 2x2 pool takes even sides")
+    if y.device.type == "cpu":
+        return bias_relu_pool_reference(y, bias)
+    pooled = torch.empty((b, c, h // 2, w // 2), dtype=y.dtype, device=y.device,
+                         memory_format=torch.channels_last)
+    bias = bias.contiguous()
+    _launch("bias_relu_pool", y, y.data_ptr(), bias.data_ptr(), pooled.data_ptr(),
+            b * h // 2, w, c)
+    bias_relu_pool_.launches += 1
+    return pooled, y
+
+
+bias_relu_pool_.launches = 0
 
 
 def cat_affine_relu_reference(skip: torch.Tensor, up: torch.Tensor, up_bias: torch.Tensor,
@@ -180,5 +223,5 @@ cat_affine_relu.launches = 0
 
 
 def launches() -> int:
-    """Launches of both kernels so far in this process."""
-    return bias_relu_.launches + cat_affine_relu.launches
+    """Launches of the three kernels so far in this process."""
+    return bias_relu_.launches + bias_relu_pool_.launches + cat_affine_relu.launches

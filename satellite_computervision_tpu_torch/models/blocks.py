@@ -22,8 +22,10 @@ came from (models/bridge.py maps one onto the other).
   kernels take, :func:`epilogue_route`) runs
   its convs without their biases and every per-channel op after them in
   the hand-written epilogue kernels (``kernels/epilogue.py``): bias + ReLU
-  in place, and the decoder's concatenation + affine + ReLU in one pass.
-  The output is bit-equal to the unfused ops, which every other case runs.
+  in place; at an encoder's last conv with a pool factor of 2 and even
+  sides, bias + ReLU and the 2x2 max-pool in one pass; and the decoder's
+  concatenation + affine + ReLU in one pass. The output is bit-equal to
+  the unfused ops, which every other case runs.
 - ``resize_nearest`` is ``jax.image.resize(method="nearest")``, which
   samples source pixel ``floor((i + 0.5) * in / out)``: torch's
   ``"nearest-exact"``. Torch's ``"nearest"`` samples ``floor(i * in /
@@ -168,7 +170,9 @@ class ConvBlock(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """conv_block -> max_pool(factor); returns (pooled, skip)."""
+    """conv_block -> max_pool(factor); returns (pooled, skip). Where the
+    last conv takes the epilogue route and the pool is 2x2 over even sides,
+    that conv's bias, ReLU and the pool run as one kernel."""
 
     def __init__(self, in_ch: int, features: int, pool: int = 2,
                  n_convs: int = 2, fold_bn: bool = False,
@@ -178,7 +182,16 @@ class EncoderBlock(nn.Module):
         self.ConvBlock_0 = ConvBlock(in_ch, features, n_convs, fold_bn, bn_momentum)
 
     def forward(self, x):
-        skip = self.ConvBlock_0(x)
+        convs = self.ConvBlock_0
+        last = getattr(convs, f"ConvBNAct_{convs.n_convs - 1}")
+        for i in range(convs.n_convs - 1):
+            x = getattr(convs, f"ConvBNAct_{i}")(x)
+        if (self.pool == 2 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+                and epilogue_route(last, last.BatchNorm_0 is None, (x,),
+                                   last.Conv_0.out_channels)):
+            # a "same" conv keeps the sides: the pool's window tiles its output
+            return epilogue.bias_relu_pool_(_without_bias(last.Conv_0, x), last.Conv_0.bias)
+        skip = last(x)
         return F.max_pool2d(skip, self.pool, self.pool), skip
 
 

@@ -617,17 +617,57 @@ def test_cat_affine_relu_kernel_bit_equal(cuda, dtype, b, side, c_skip, c_up):
     assert torch.equal(_bits(got), _bits(want))
 
 
+SWEEP_POOLS = SWEEP_SITES[:5]  # the encoders' last convs: 640² x 32 down to 40² x 512
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,side,c", [(16, s, c) for s, c in SWEEP_POOLS] + [
+    (3, 8, 8),      # 4 pooled columns: most of a block's threads idle
+    (2, 6, 24),     # 3 (bf16) or 6 (f32) vectors a pixel: blocks of 255 / 252 threads
+    (1, 4, 8192),   # 1024 (bf16) or 2048 (f32: past a block) vectors a pixel
+])
+def test_bias_relu_pool_kernel_bit_equal(cuda, dtype, b, side, c):
+    """``bias_relu_pool_`` against ``bias_relu_`` then ``F.max_pool2d`` on
+    the card, bit for bit in both outputs, NaN and signed zeros planted in
+    windows (channel 1's bias is -0)."""
+    if dtype == torch.float32 and c == 8192:
+        with pytest.raises(ValueError):
+            epilogue.bias_relu_pool_(_hard_on_card((b, c, side, side), dtype, 0),
+                                     _vector_on_card(c, dtype, 1))
+        return
+    y = _hard_on_card((b, c, side, side), dtype, side + c + 2)
+    nan = float("nan")
+    for (i, j), window in zip([(0, 0), (0, 2), (side - 2, side - 2)],
+                              [[[-0.0, 0.0], [-3.0, -0.0]], [[1.0, nan], [nan, -0.0]],
+                               [[0.0, -0.0], [nan, 5.0]]]):
+        y[-1, 1, i:i + 2, j:j + 2] = torch.tensor(window, dtype=dtype)
+    bias = _vector_on_card(c, dtype, c + 1)
+    want_y = epilogue.bias_relu_(y.clone(memory_format=torch.channels_last), bias)
+    want = torch.nn.functional.max_pool2d(want_y, 2, 2)
+    before = epilogue.bias_relu_pool_.launches
+    pooled, got_y = epilogue.bias_relu_pool_(y, bias)
+    torch.cuda.synchronize()
+    assert got_y is y and epilogue.bias_relu_pool_.launches == before + 1
+    assert pooled.is_contiguous(memory_format=torch.channels_last)
+    assert torch.isnan(pooled[-1, 1, 0, 1])
+    assert torch.equal(_bits(got_y), _bits(want_y))
+    assert torch.equal(_bits(pooled), _bits(want))
+
+
 def test_epilogue_kernels_reject_unaligned_activations(cuda):
     y = torch.zeros((2 * 16 * 4 * 4 + 1,), device=cuda)[1:].view(2, 4, 4, 16).permute(0, 3, 1, 2)
     with pytest.raises(ValueError):
         epilogue.bias_relu_(y, torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError):
+        epilogue.bias_relu_pool_(y, torch.zeros(16, device=cuda))
 
 
 def test_folded_solar_unet_served_on_card_bit_equal_to_the_unfused_ops(cuda):
     """The solar U-Net, folded, in bf16 channels-last as ``predict`` serves
     it: its probabilities bit-equal to the forward written out with the
-    unfused ops, 27 epilogue launches a chip batch (22 conv sites, 5
-    decoders), each ``serve.forward`` span carrying them."""
+    unfused ops, 27 epilogue launches a chip batch (17 conv sites, 5 conv
+    sites with their pools, 5 decoders), each ``serve.forward`` span
+    carrying them and its 5 pools."""
     from torch.profiler import ProfilerActivity, profile
 
     from satellite_computervision_tpu_torch.predict import to_serving
@@ -637,10 +677,11 @@ def test_folded_solar_unet_served_on_card_bit_equal_to_the_unfused_ops(cuda):
     g = torch.Generator().manual_seed(5)
     chips = (torch.rand((4, 640, 640, 6), generator=g) * 0.4).to(cuda)
     with torch.inference_mode():
-        before = epilogue.launches()
+        before, pooled = epilogue.launches(), epilogue.bias_relu_pool_.launches
         got = net(chips)["probs"]
         torch.cuda.synchronize()
         assert epilogue.launches() == before + 27
+        assert epilogue.bias_relu_pool_.launches == pooled + 5
         want = unfused_forward(net, chips)
     assert torch.equal(got, want)
 
@@ -651,7 +692,25 @@ def test_folded_solar_unet_served_on_card_bit_equal_to_the_unfused_ops(cuda):
         engine.predict_scene(scene)
     forwards = [s.attrs for s in span_log() if s.name == "serve.forward"]
     assert len(forwards) == 2  # 2 x 3 chips in batches of 4
-    assert all(a["kernels"] == 27 for a in forwards)
+    assert all(a["kernels"] == 27 and a["pooled"] == 5 for a in forwards)
+
+
+def test_folded_solar_unet_pooling_in_the_kernel_serves_the_unfused_pools_map(cuda, monkeypatch):
+    """The served map with each encoder's bias, ReLU and pool in
+    ``bias_relu_pool_`` is the map of ``bias_relu_`` then ``F.max_pool2d``
+    at those sites, bit for bit."""
+    from satellite_computervision_tpu_torch.predict import to_serving
+
+    net = to_serving(folded_unet(), cuda)
+    g = torch.Generator().manual_seed(9)
+    chips = (torch.rand((4, 640, 640, 6), generator=g) * 0.4).to(cuda)
+    with torch.inference_mode():
+        got = net(chips)["probs"]
+        bias_relu = epilogue.bias_relu_
+        monkeypatch.setattr(epilogue, "bias_relu_pool_", lambda y, b: (
+            torch.nn.functional.max_pool2d(bias_relu(y, b), 2, 2), y))
+        want = net(chips)["probs"]
+    assert torch.equal(got, want)
 
 
 def test_folded_float32_unet_under_bf16_autocast_keeps_the_unfused_ops(cuda):

@@ -18,7 +18,8 @@ from satellite_computervision_tpu_torch.inference import TiledInferenceEngine
 from satellite_computervision_tpu_torch import kernels
 from satellite_computervision_tpu_torch.kernels import epilogue, preprocess, stitch
 from satellite_computervision_tpu_torch.models import UNet, fold_unet
-from satellite_computervision_tpu_torch.models.blocks import ConvBNAct, epilogue_route
+from satellite_computervision_tpu_torch.models.blocks import (ConvBNAct, EncoderBlock,
+                                                              epilogue_route)
 from satellite_computervision_tpu_torch.utils.profiling import span_log
 
 DTYPES = [torch.bfloat16, torch.float32]
@@ -61,6 +62,33 @@ def test_bias_relu_plain_is_the_op_sequence_bit_for_bit(dtype, shape):
     assert torch.equal(_bits(got), _bits(want))
     assert torch.isnan(got).any()
     assert epilogue.launches() == before  # the CPU launches nothing
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 8, 4, 6), (1, 32, 2, 4), (3, 24, 6, 4)])
+def test_bias_relu_pool_plain_is_the_op_sequence_bit_for_bit(dtype, shape):
+    y = _hard(shape, dtype, seed=shape[1] + 1)
+    # one window holding -0 and +0 after the bias's -0 (channel 1), NaN in
+    # the next window of the same channel, and -0 before +0 in a third
+    y[0, 1, 0:2, 0:2] = torch.tensor([[-0.0, 0.0], [-3.0, -0.0]], dtype=dtype)
+    y[0, 1, 0:2, 2:4] = torch.tensor([[1.0, float("nan")], [2.0, -0.0]], dtype=dtype)
+    y[-1, 1, -2:, -2:] = torch.tensor([[0.0, -0.0], [float("nan"), 5.0]], dtype=dtype)
+    bias = _vector(shape[1], dtype, seed=2)
+    relu = F.relu(y + bias[:, None, None])
+    want = F.max_pool2d(relu, 2, 2)
+    before = epilogue.launches()
+    pooled, got_y = epilogue.bias_relu_pool_(y.clone(memory_format=torch.channels_last), bias)
+    assert pooled.shape == (shape[0], shape[1], shape[2] // 2, shape[3] // 2)
+    assert torch.equal(_bits(pooled), _bits(want))
+    assert torch.equal(_bits(got_y), _bits(relu))
+    assert torch.isnan(pooled[0, 1, 0, 1]) and torch.isnan(pooled[-1, 1, -1, -1])
+    assert epilogue.launches() == before  # the CPU launches nothing
+
+
+def test_bias_relu_pool_is_in_place_on_its_input():
+    y = _hard((2, 16, 4, 4), torch.float32, seed=3)
+    pooled, skip = epilogue.bias_relu_pool_(y, _vector(16, torch.float32, seed=4))
+    assert skip is y and pooled.shape == (2, 16, 2, 2)
 
 
 def test_bias_relu_is_in_place():
@@ -106,6 +134,28 @@ def test_bias_relu_rejects_what_the_kernel_cannot_take(case):
         y = torch.zeros((16, 4, 4))
     with pytest.raises(ValueError):
         epilogue.bias_relu_(y, bias)
+
+
+@pytest.mark.parametrize("case", ["odd_height", "odd_width", "layout", "channels",
+                                  "past_a_block", "bias_shape", "float64"])
+def test_bias_relu_pool_rejects_what_the_kernel_cannot_take(case):
+    y, bias = _cl((2, 16, 4, 4)), torch.zeros(16)
+    if case == "odd_height":
+        y = _cl((2, 16, 5, 4))
+    elif case == "odd_width":
+        y = _cl((2, 16, 4, 3))
+    elif case == "layout":
+        y = torch.zeros((2, 16, 4, 4))
+    elif case == "channels":
+        y, bias = _cl((2, 12, 4, 4)), torch.zeros(12)
+    elif case == "past_a_block":  # 2048 float32 vectors a pixel
+        y, bias = _cl((1, 8192, 2, 2)), torch.zeros(8192)
+    elif case == "bias_shape":
+        bias = torch.zeros(8)
+    else:
+        y, bias = _cl((2, 16, 4, 4), torch.float64), torch.zeros(16, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        epilogue.bias_relu_pool_(y, bias)
 
 
 @pytest.mark.parametrize("case", ["skip_channels", "up_channels", "skip_layout", "up_layout",
@@ -208,14 +258,30 @@ def test_folded_unet_on_the_cpu_takes_the_unfused_ops():
 
 
 class _Spy:
-    """Counts calls of a kernel wrapper and runs its plain version."""
+    """Counts calls of a kernel wrapper, which the launch counters read as
+    its launches, and runs its plain version."""
 
     def __init__(self, fn):
         self.fn, self.calls = fn, 0
 
+    @property
+    def launches(self):
+        return self.calls
+
     def __call__(self, *args):
         self.calls += 1
         return self.fn(*args)
+
+
+def _spies(monkeypatch):
+    """The three wrappers replaced by spies, the gate opened for CPU
+    tensors; returns (bias_relu_, bias_relu_pool_, cat_affine_relu)."""
+    spies = tuple(_Spy(getattr(epilogue, n))
+                  for n in ("bias_relu_", "bias_relu_pool_", "cat_affine_relu"))
+    monkeypatch.setattr(epilogue, "takes", lambda t, *c: t.device.type == "cpu")
+    for n, spy in zip(("bias_relu_", "bias_relu_pool_", "cat_affine_relu"), spies):
+        monkeypatch.setattr(epilogue, n, spy)
+    return spies
 
 
 @pytest.mark.parametrize("space_to_depth,side,sites", [(False, 32, 22), (True, 64, 23)],
@@ -224,24 +290,67 @@ def test_fused_route_has_every_site_and_the_unfused_result(monkeypatch, space_to
                                                            sites):
     """With the gate opened on the CPU, the solar U-Net's forward runs its
     conv sites (22; 23 with the space-to-depth stem's upsample) through
-    ``bias_relu_`` and its 5 decoders through ``cat_affine_relu``, and
-    computes what the unfused ops compute (up to the CPU conv's own
-    placement of the bias in its sum)."""
+    ``bias_relu_`` or, at each encoder's pool, ``bias_relu_pool_``, and its
+    5 decoders through ``cat_affine_relu``, and computes what the unfused
+    ops compute (up to the CPU conv's own placement of the bias in its
+    sum)."""
     net = folded_unet(space_to_depth)
     x = _input(side)
     with torch.inference_mode():
         want = net(x)["probs"]
-    bias_relu, cat = _Spy(epilogue.bias_relu_), _Spy(epilogue.cat_affine_relu)
-    monkeypatch.setattr(epilogue, "takes", lambda t, *c: t.device.type == "cpu")
-    monkeypatch.setattr(epilogue, "bias_relu_", bias_relu)
-    monkeypatch.setattr(epilogue, "cat_affine_relu", cat)
+    bias_relu, pool, cat = _spies(monkeypatch)
     with torch.inference_mode():
         got = net(x.contiguous())["probs"]
-    assert (bias_relu.calls, cat.calls) == (sites, 5)
+    assert (bias_relu.calls + pool.calls, cat.calls) == (sites, 5)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     with torch.no_grad():  # no autograd recording is enough: the route is taken
         net(x)
-    assert (bias_relu.calls, cat.calls) == (2 * sites, 10)
+    assert (bias_relu.calls + pool.calls, cat.calls) == (2 * sites, 10)
+
+
+@pytest.mark.parametrize("space_to_depth,side,calls", [(False, 32, (17, 5, 5)),
+                                                      (True, 64, (18, 5, 5))],
+                         ids=["plain-stem", "s2d-stem"])
+def test_fused_route_pools_in_every_encoder(monkeypatch, space_to_depth, side, calls):
+    """With the gate opened on the CPU, each of the 5 encoders' last conv
+    ends in ``bias_relu_pool_`` (17 ``bias_relu_``, 5 ``bias_relu_pool_``,
+    5 ``cat_affine_relu``; 18 with the space-to-depth stem), and the
+    forward computes the unfused forward's result."""
+    net = folded_unet(space_to_depth)
+    x = _input(side)
+    with torch.inference_mode():
+        want = unfused_forward(net, x)
+    spies = _spies(monkeypatch)
+    with torch.inference_mode():
+        got = net(x)["probs"]
+    assert tuple(s.calls for s in spies) == calls
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("pool,side,fused", [(3, 12, False), (2, 7, False), (2, 8, True)],
+                         ids=["factor-3", "odd-side", "even-factor-2"])
+def test_only_an_even_2x2_pool_takes_the_pooling_kernel(monkeypatch, pool, side, fused):
+    """A factor-3 pool (the hybrid's first) and an odd side keep
+    ``bias_relu_`` then ``F.max_pool2d``; a 2x2 pool over even sides takes
+    ``bias_relu_pool_``. Either way the block returns the unfused result."""
+    torch.manual_seed(1)
+    block = EncoderBlock(8, 16, pool=pool, fold_bn=True).eval()
+    x = _hard((2, 8, side, side), torch.float32, seed=side).nan_to_num(0.0, 1e3, -1e3)
+    with torch.inference_mode():
+        h = x
+        for i in range(2):
+            h = F.relu(getattr(block.ConvBlock_0, f"ConvBNAct_{i}").Conv_0(h))
+        want = (F.max_pool2d(h, pool, pool), h)
+    bias_relu, pooled, _ = _spies(monkeypatch)
+    max_pool = _Spy(F.max_pool2d)
+    monkeypatch.setattr(F, "max_pool2d", max_pool)
+    with torch.inference_mode():
+        got = block(x)
+    assert (bias_relu.calls, pooled.calls) == ((1, 1) if fused else (2, 0))
+    assert max_pool.calls == 1  # the block's, or the plain version's inside the wrapper
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
 
 
 def test_autocast_keeps_the_unfused_ops(monkeypatch):
@@ -251,14 +360,11 @@ def test_autocast_keeps_the_unfused_ops(monkeypatch):
     under the same autocast."""
     net = folded_unet(filters=(8, 16))
     x = _input(16)
-    bias_relu, cat = _Spy(epilogue.bias_relu_), _Spy(epilogue.cat_affine_relu)
-    monkeypatch.setattr(epilogue, "takes", lambda t, *c: t.device.type == "cpu")
-    monkeypatch.setattr(epilogue, "bias_relu_", bias_relu)
-    monkeypatch.setattr(epilogue, "cat_affine_relu", cat)
+    bias_relu, pool, cat = _spies(monkeypatch)
     with torch.inference_mode(), torch.autocast("cpu", dtype=torch.bfloat16):
         got = net(x)["probs"]
         want = unfused_forward(net, x)
-    assert (bias_relu.calls, cat.calls) == (0, 0)
+    assert (bias_relu.calls, pool.calls, cat.calls) == (0, 0, 0)
     assert torch.equal(got, want)
 
 
@@ -281,18 +387,19 @@ def test_the_route_wants_one_dtype_for_parameters_and_activations(monkeypatch, c
 
 def test_launches_counts_every_hand_written_kernel(monkeypatch):
     monkeypatch.setattr(epilogue.bias_relu_, "launches", 3)
+    monkeypatch.setattr(epilogue.bias_relu_pool_, "launches", 13)
     monkeypatch.setattr(epilogue.cat_affine_relu, "launches", 5)
     monkeypatch.setattr(preprocess.fused_preprocess, "launches", 7)
     monkeypatch.setattr(stitch.hann_stitch, "launches", 11)
-    assert epilogue.launches() == 8
-    assert kernels.launches() == 26
+    assert epilogue.launches() == 21
+    assert kernels.launches() == 39
 
 
 def test_training_and_live_batchnorm_never_take_the_route(monkeypatch):
     monkeypatch.setattr(epilogue, "takes", lambda t, *c: True)
     calls = []
-    monkeypatch.setattr(epilogue, "bias_relu_", lambda *a: calls.append(a))
-    monkeypatch.setattr(epilogue, "cat_affine_relu", lambda *a: calls.append(a))
+    for name in ("bias_relu_", "bias_relu_pool_", "cat_affine_relu"):
+        monkeypatch.setattr(epilogue, name, lambda *a: calls.append(a))
     folded = folded_unet(filters=(8, 16))
     x = _input(16)
     folded(x)["probs"].sum().backward()  # autograd recording: a training forward
@@ -311,4 +418,22 @@ def test_serve_forward_span_counts_the_launches_of_its_chip_batch():
         engine.predict_scene(scene)
     forwards = [s.attrs for s in span_log() if s.name == "serve.forward"]
     assert len(forwards) == 3  # 12 chips in batches of 4
-    assert all(a["kernels"] == 0 for a in forwards)  # the CPU launches no kernel
+    # the CPU launches no kernel
+    assert all(a["kernels"] == 0 and a["pooled"] == 0 for a in forwards)
+
+
+def test_serve_forward_span_counts_the_pooling_launches(monkeypatch):
+    """With the gate opened on the CPU (each wrapper's calls counted as its
+    launches), every chip batch of a 2-level U-Net carries ``kernels`` 12
+    (8 ``bias_relu_``, 2 ``bias_relu_pool_``, 2 ``cat_affine_relu``) and
+    ``pooled`` 2."""
+    net = folded_unet(filters=(8, 16))
+    engine = TiledInferenceEngine(lambda c: net(c.contiguous())["probs"], kernel=16, buffer=8,
+                                  batch_size=4, blend="hann", device="cpu")
+    scene = np.random.default_rng(0).random((40, 50, 6), dtype=np.float32)
+    _spies(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]):
+        engine.predict_scene(scene)
+    forwards = [s.attrs for s in span_log() if s.name == "serve.forward"]
+    assert len(forwards) == 3
+    assert all(a["kernels"] == 12 and a["pooled"] == 2 for a in forwards)
