@@ -16,8 +16,9 @@ it. ``--ckpt`` holds ``best/model.pt`` (the port's format) or
 bfloat16, as the JAX CLI serves it; on the CPU (``--device cpu``) in
 float32.
 
-``--model`` takes the single-input TFRecord families: ``unet``, ``deeplab``
-and ``acnn`` (the ACNN of the landcover preset, 8 one-hot classes).
+``--model`` takes the single-input TFRecord families: ``unet``, ``deeplab``,
+``acnn`` (the ACNN of the landcover preset, 8 one-hot classes) and
+``satlas`` (SatlasPretrain's multi-image Swin-v2; a ``model.pt`` only).
 
 Published-weights mode (``--h5``): score a reference-trained Keras U-Net
 directly against eval chips::
@@ -112,7 +113,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", choices=sorted(CONFIGS), default="solar")
-    ap.add_argument("--model", default="unet", choices=["unet", "deeplab", "acnn"],
+    ap.add_argument("--model", default="unet", choices=["unet", "deeplab", "acnn", "satlas"],
                     help="single-input TFRecord families")
     ap.add_argument("--ckpt", help="checkpoint directory (reads <ckpt>/best), or --h5")
     ap.add_argument("--h5", help="reference Keras .h5 weights (path or URL): architecture "

@@ -1,7 +1,8 @@
 """The model families (PyTorch): U-Net, Siamese U-Net, DeepLab v3+,
 ConvLSTM and LSTM autoencoder, ACNN and hierarchical ACNN, hybrid U-Net +
-ConvLSTM, the Prithvi-EO-2.0 ViT with a segmentation head; the U-Net's BN
-folding, the flax weight bridge (both ways), losses and metrics."""
+ConvLSTM, the Prithvi-EO-2.0 ViT with a segmentation head, SatlasPretrain's
+multi-image Swin-v2 with its FPN and head; the U-Net's BN folding, the flax
+weight bridge (both ways), losses and metrics."""
 
 from satellite_computervision_tpu_torch.models.blocks import (
     ASPP,
@@ -31,6 +32,7 @@ from satellite_computervision_tpu_torch.models.convlstm import (
 from satellite_computervision_tpu_torch.models.fold import fold_unet
 from satellite_computervision_tpu_torch.models.hybrid import HybridUNetLSTM, UNetTrunk
 from satellite_computervision_tpu_torch.models.prithvi import PrithviSegmenter
+from satellite_computervision_tpu_torch.models.satlas import SatlasSwinSegmenter
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet, flax_init_, unet_parking, unet_solar
 
@@ -57,6 +59,7 @@ __all__ = [
     "UNetTrunk",
     "HybridUNetLSTM",
     "PrithviSegmenter",
+    "SatlasSwinSegmenter",
     "load_torch_resnet_weights",
     "export_torch_resnet_weights",
     "unet_solar",

@@ -117,8 +117,10 @@ def _host_tensor(arr) -> torch.Tensor:
 
 class _PinnedRing:
     """``n`` pinned host buffers, one item each, used in turn and grown
-    when an item needs more room; ``wait`` names the span of the wait on
-    a buffer's previous copies."""
+    when an item needs more room; the first item pins them all at its size,
+    so a stream that has staged fewer items than the ring holds pins no
+    more when the next ones come. ``wait`` names the span of the wait on a
+    buffer's previous copies."""
 
     def __init__(self, n: int, wait: str):
         self.buffers = [None] * n
@@ -136,8 +138,11 @@ class _PinnedRing:
         sources = {k: _host_tensor(a) for k, a in arrays.items()}
         offsets = list(itertools.accumulate((-(-t.nbytes // _ALIGN) * _ALIGN
                                              for t in sources.values()), initial=0))
-        if self.buffers[i] is None or self.buffers[i].numel() < offsets[-1]:
-            self.buffers[i] = torch.empty(max(offsets[-1], 1), dtype=torch.uint8, pin_memory=True)
+        size = max(offsets[-1], 1)
+        if self.buffers[i] is None or self.buffers[i].numel() < size:
+            for j, buf in enumerate(self.buffers):
+                if j == i or buf is None:
+                    self.buffers[j] = torch.empty(size, dtype=torch.uint8, pin_memory=True)
         out = {}
         with torch.cuda.stream(stream):
             for (k, src), at in zip(sources.items(), offsets):

@@ -1,6 +1,6 @@
 """Config-driven training CLI over the model zoo: TFRecord workloads (the
-unet, deeplab, acnn and prithvi families) and npy-chip workloads (siamese,
-convlstm, lstm_autoencoder, hybrid, hierarchical).
+unet, deeplab, acnn, prithvi and satlas families) and npy-chip workloads
+(siamese, convlstm, lstm_autoencoder, hybrid, hierarchical).
 
 Port of ``scripts/train.py``::
 
@@ -95,7 +95,7 @@ from satellite_computervision_tpu_torch.train.config import CONFIGS
 from satellite_computervision_tpu_torch.train.trainer import Trainer, create_train_state
 from satellite_computervision_tpu_torch.train.zoo import FAMILIES
 
-TFRECORD_FAMILIES = ("unet", "deeplab", "acnn", "prithvi")
+TFRECORD_FAMILIES = ("unet", "deeplab", "acnn", "prithvi", "satlas")
 NPY_FAMILIES = ("siamese", "convlstm", "lstm_autoencoder", "hybrid", "hierarchical")
 
 

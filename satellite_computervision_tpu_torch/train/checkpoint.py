@@ -48,15 +48,17 @@ from satellite_computervision_tpu_torch.models.convlstm import LSTMAutoencoder, 
 from satellite_computervision_tpu_torch.models.deeplab import DeepLabV3Plus
 from satellite_computervision_tpu_torch.models.hybrid import HybridUNetLSTM
 from satellite_computervision_tpu_torch.models.prithvi import PrithviSegmenter
+from satellite_computervision_tpu_torch.models.satlas import SatlasSwinSegmenter
 from satellite_computervision_tpu_torch.models.siamese import SiameseUNet
 from satellite_computervision_tpu_torch.models.unet import UNet
 from satellite_computervision_tpu_torch.train import flax_msgpack
 
 Model = Union[UNet, SiameseUNet, DeepLabV3Plus, LSTMModel, LSTMAutoencoder, HybridUNetLSTM,
-              ACNN, HierarchicalACNN, PrithviSegmenter]
+              ACNN, HierarchicalACNN, PrithviSegmenter, SatlasSwinSegmenter]
 ARCHS = {"unet": UNet, "siamese": SiameseUNet, "deeplab": DeepLabV3Plus,
          "convlstm": LSTMModel, "lstm_autoencoder": LSTMAutoencoder, "hybrid": HybridUNetLSTM,
-         "acnn": ACNN, "hierarchical": HierarchicalACNN, "prithvi": PrithviSegmenter}
+         "acnn": ACNN, "hierarchical": HierarchicalACNN, "prithvi": PrithviSegmenter,
+         "satlas": SatlasSwinSegmenter}
 
 
 def build_empty(build, *args, **kwargs) -> Model:

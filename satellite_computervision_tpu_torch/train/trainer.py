@@ -63,6 +63,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from satellite_computervision_tpu_torch.models import metrics as metrics_lib
+from satellite_computervision_tpu_torch.utils.cuda_graphs import after_failed_capture, no_mode_active
 from satellite_computervision_tpu_torch.utils.profiling import span
 
 
@@ -169,9 +170,7 @@ def _graphable(state: TrainState, batch) -> bool:
             and all(g.get("capturable", False) for g in state.optimizer.param_groups)
             and not isinstance(state.model, (DataParallel, DistributedDataParallel))
             and torch.is_grad_enabled()
-            and torch._C._len_torch_dispatch_stack() == 0
-            and torch._C._len_torch_function_stack() == 0
-            and not torch.cuda.is_current_stream_capturing())
+            and no_mode_active())
 
 
 def _collective(model: torch.nn.Module) -> bool:
@@ -188,21 +187,6 @@ def _hyperparameters(optimizer: torch.optim.Optimizer) -> list:
     return [sorted((k, v) for k, v in g.items()
                    if k != "params" and isinstance(v, (bool, int, float, str, tuple, type(None))))
             for g in optimizer.param_groups]
-
-
-def _after_failed_capture(device: torch.device, stream, pool) -> None:
-    """Put back what a capture that ended in an error leaves behind: its
-    side stream current, the allocator still sending allocations to its
-    memory pool (memory used across streams then is never freed), and the
-    CUDA generator in capture mode (every later random op then raises)."""
-    torch.cuda.set_stream(stream)
-    with contextlib.suppress(RuntimeError):  # already ended where the error came later
-        torch._C._cuda_endAllocateToPool(device.index, pool)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the graph below is empty, by design
-        with torch.cuda.device(device), \
-                torch.cuda.graph(torch.cuda.CUDAGraph(), capture_error_mode="thread_local"):
-            pass  # a capture that ends cleanly takes the generator out of capture mode
 
 
 class _StepGraph:
@@ -253,7 +237,7 @@ class _StepGraph:
                           "it runs eagerly for this input signature", RuntimeWarning)
         finally:
             if not captured:
-                _after_failed_capture(device, stream, pool)
+                after_failed_capture(device, stream, pool)
                 for p, g in zip(self.params, grads):
                     p.grad = g
                 self.optimizer.state.clear()

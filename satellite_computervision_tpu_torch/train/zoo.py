@@ -5,9 +5,11 @@ Port of ``satellite_computervision_tpu/train/zoo.py``, all eight families:
 ``unet`` (the ``solar`` and ``parking`` configs), ``deeplab`` (DeepLab v3+
 on a ResNet-50), ``siamese`` (``change``; before and after), ``convlstm``
 and ``lstm_autoencoder`` (``timeseries``), ``hybrid``, ``acnn`` and
-``hierarchical`` (``landcover``, ``wetland``); and one family of the port's
-own, ``prithvi`` (the Prithvi-EO-2.0 ViT encoder with a segmentation head,
-``models/prithvi.py``), which the JAX package does not have.
+``hierarchical`` (``landcover``, ``wetland``); and two families of the
+port's own, which the JAX package does not have: ``prithvi`` (the
+Prithvi-EO-2.0 ViT encoder with a segmentation head, ``models/prithvi.py``)
+and ``satlas`` (SatlasPretrain's multi-image Swin-v2 with its FPN and head,
+``models/satlas.py``).
 
 The JAX modules infer their input channels at ``init``; the port's take
 them at construction: images and series have ``len(cfg.bands)``
@@ -25,6 +27,7 @@ import numpy as np
 
 from satellite_computervision_tpu_torch.models import flax_init_, losses
 from satellite_computervision_tpu_torch.models.prithvi import mae_init_
+from satellite_computervision_tpu_torch.models.satlas import swin_init_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +38,7 @@ class Family:
     ``pred_key=None`` hands the whole output dict to ``loss_fn``
     (multi-head families), and ``init(model, generator)``, which draws
     every weight and statistic from the seed (the JAX CLI's flax
-    initialisation; MAE's for the ViT)."""
+    initialisation; MAE's for the ViT, torchvision's for the Swin)."""
 
     name: str
     build: Callable
@@ -143,6 +146,17 @@ def _build_prithvi(cfg=None, **kw):
     kw.setdefault("frames", 1)
     in_channels = kw.pop("in_channels", _channels(cfg, 6) * kw["frames"])
     return PrithviSegmenter(in_channels, n_classes=n, **kw)
+
+
+def _build_satlas(cfg=None, **kw):
+    from satellite_computervision_tpu_torch.models.satlas import SatlasSwinSegmenter
+
+    n = cfg.num_classes if cfg else 1
+    kw.setdefault("head", "sigmoid" if n == 1 else "softmax")
+    kw.setdefault("threshold", cfg.threshold if cfg else 0.5)
+    kw.setdefault("frames", 1)
+    in_channels = kw.pop("in_channels", _channels(cfg, 9) * kw["frames"])
+    return SatlasSwinSegmenter(in_channels, n_classes=n, **kw)
 
 
 def _img(cfg, k=None, c=None):
@@ -259,6 +273,13 @@ FAMILIES = {
         _map_labels,
         _bce,
         mae_init_,
+    ),
+    "satlas": Family(
+        "satlas", _build_satlas,
+        lambda cfg: (_img(cfg),),
+        _map_labels,
+        _bce,
+        swin_init_,
     ),
 }
 

@@ -252,9 +252,9 @@ def test_cli_refusals(tmp_path, monkeypatch):
         evaluate_cli.main(["--config", "landcover", "--model", "acnn", "--ckpt",
                            str(tmp_path), "--eval", __file__])
     assert not (tmp_path / "run").exists()
-    # every family of the JAX package, and the port's own ViT
+    # every family of the JAX package, and the port's own ViT and Swin
     assert set(train_cli.TFRECORD_FAMILIES + train_cli.NPY_FAMILIES) == set(zoo.FAMILIES) \
-        == set(jzoo.FAMILIES) | {"prithvi"}
+        == set(jzoo.FAMILIES) | {"prithvi", "satlas"}
     assert set(CONFIGS) == set(JAX_CONFIGS)
 
 

@@ -334,6 +334,35 @@ def test_prefetch_to_device_on_card_keeps_every_batch(cuda):
             np.testing.assert_array_equal(dev[k].cpu().numpy(), arr)
 
 
+def test_the_staging_ring_is_pinned_whole_by_its_first_item(cuda, monkeypatch):
+    """Four scenes through ``stage_to_device`` with a ring of size + 1 = 3
+    pinned buffers: the first scene pins all three at its size, so the
+    later ones, the third ring slot's first included, pin nothing more;
+    every scene arrives whole."""
+    from satellite_computervision_tpu_torch import staging
+
+    seen = []
+    copy_to = staging._PinnedRing.copy_to
+
+    def spy(self, arrays, device, stream):
+        out = copy_to(self, arrays, device, stream)
+        seen.append([None if b is None else (b.data_ptr(), b.numel(), b.is_pinned())
+                     for b in self.buffers])
+        return out
+
+    monkeypatch.setattr(staging._PinnedRing, "copy_to", spy)
+    scenes = [np.random.default_rng(i).integers(0, 10000, (96, 80, 36), dtype=np.uint16)
+              for i in range(4)]
+    got = [d.cpu().numpy() for d, _ in staging.stage_to_device(((s, i) for i, s in
+                                                                enumerate(scenes)), 2, cuda)]
+    torch.cuda.synchronize()
+    assert len(seen) == 4 and all(b is not None and b[1] >= scenes[0].nbytes and b[2]
+                                  for b in seen[0])
+    assert len({b[0] for b in seen[0]}) == 3 and all(s == seen[0] for s in seen)
+    for want, have in zip(scenes, got):
+        np.testing.assert_array_equal(have, want)
+
+
 @pytest.fixture
 def small_siamese():
     torch.manual_seed(0)
@@ -821,6 +850,126 @@ def test_prithvi_sdpa_launches_match_the_encoder_span(cuda):
     assert len(logged) == 3 and count == sum(a["layers"] for a in logged) == 3 * 2
     assert logged[0]["tokens"] == 785 and logged[0]["dtype"] == "bfloat16"
     assert share is not None and 0 < share <= 100
+
+
+def _satlas(cuda, chips=1):
+    """The configuration's SatlasPretrain Swin-v2-Base, its seeded float32
+    weights, the program's model served in bfloat16 channels-last, and
+    ``chips`` chips of 512^2 x 36 from the cell's imagery."""
+    import json
+
+    from test_torch_satlas import REPO
+
+    from perfbench import inputs
+    from perfbench.families import satlas as family
+    from satellite_computervision_tpu_torch.predict import to_serving
+
+    model = json.loads((REPO / "perfbench" / "configs" / "satlas_swinv2b_s2_mi.json")
+                       .read_text())["model"]
+    spec = json.loads((REPO / "perfbench" / "traffic" / "s2_mi_tile_sweep.json").read_text())
+    w = inputs.draw_weights(family.reference.specs(model), inputs.generator(13, "weights", cuda),
+                            cuda)
+    x = inputs.imagery(inputs.generator(13, "chips", cuda), chips, 512, 36, spec["imagery"],
+                       cuda).round()
+    net = to_serving(family.build(model, cuda, w).eval(), cuda)
+    return model, w, net, x
+
+
+def test_satlas_served_in_bf16_against_the_float32_reference(cuda):
+    """At the published widths, one 512^2 chip of four dates through the
+    program in bfloat16 against the plain reference in float32 (TF32 off),
+    as the uint8 maps' mean absolute difference, with the reference in
+    float8 (3 bits) as the control. The head's ReLU sites run the
+    hand-written epilogue (5 launches a forward). The third forward of the
+    shape captures the stages as CUDA graphs; their replays give the eager
+    forward's map bit for bit."""
+    from perfbench.reference import satlas as ref
+    from perfbench.reference.layers import Ops, exact_float32
+    from perfbench.reference.tiling import to_uint8
+    from satellite_computervision_tpu_torch.models.satlas import StageGraphs
+
+    model, w, net, x = _satlas(cuda)
+    with torch.inference_mode():
+        before = epilogue.bias_relu_.launches
+        got = net(x)["probs"]
+        launches = epilogue.bias_relu_.launches - before
+        replayed = [net(x)["probs"] for _ in range(3)]
+        with exact_float32():
+            want = torch.sigmoid(ref.logits(w, x, model, Ops("float32")))
+            control = torch.sigmoid(ref.logits(w, x, model, Ops("float8")))
+
+    def gap(p):
+        return float((to_uint8(p).float() - to_uint8(want).float()).abs().mean())
+
+    print(f"satlas uint8 gaps: bf16 {gap(got):.4f}, float8 {gap(control):.4f}; "
+          f"probs spread {float(want.std()):.3f}")
+    assert launches == 5
+    assert [type(g) for g in net.backbone._graphs.values()] == [StageGraphs]
+    assert all(torch.equal(r, got) for r in replayed)
+    assert 0.05 < float(want.std())  # the map answers, not a constant
+    assert gap(got) < 3.0 and gap(control) > 5.0
+
+
+def test_satlas_attention_launches_match_the_stage_spans(cuda):
+    """Every ``swin.stage`` span's ``layers`` is one attention kernel on the
+    card (the count ``swin_attn_roofline`` holds the trace to), eager and
+    replayed from the captured stages, and the reader gives a share of the
+    roofline, above 0 and at or under 100 %."""
+    from test_torch_satlas import REPO
+
+    from perfbench import manifest, tracing
+    from satellite_computervision_tpu_torch.utils.profiling import span_log
+
+    reader = manifest.load_module(REPO / "perfbench" / "layer_metrics" /
+                                  "swin_attn_roofline.py", "swin_attn_roofline")
+    _, _, net, x = _satlas(cuda, chips=2)
+    for warm in (1, 3):  # eager forwards, then replays of the captured stages
+        with torch.inference_mode():
+            for _ in range(warm):
+                net(x)
+            torch.cuda.synchronize()
+            with tracing.profiled(cuda) as prof:
+                with tracing.span("window"):
+                    for _ in range(2):
+                        net(x)
+                    torch.cuda.synchronize()
+        table = prof["table"]
+        names = sorted({n for k, n, *_ in table["events"] if k == "kernel"
+                        and any(s in n.lower() for s in reader.NEEDLES)})
+        count, seconds = reader.attention_kernels(table)
+        share = reader.read(table, {"device_name": torch.cuda.get_device_name(cuda)})
+        logged = [r.attrs for r in span_log() if r.name == "swin.stage"]
+        kernels = sum(1 for k, *_ in table["events"] if k == "kernel")
+        print(f"{'replayed' if warm == 3 else 'eager'}: {kernels} kernels; attention {names}: "
+              f"{count} in {seconds * 1e3:.3f} ms; swin_attn_roofline {share}; "
+              f"stages {logged[:4]}")
+        assert len(logged) == 2 * 4 and count == sum(a["layers"] for a in logged) == 2 * 24
+        assert logged[0]["windows"] == 256 and logged[0]["images"] == 8
+        assert [a["rolled"] for a in logged[:4]] == [1, 1, 9, 1]
+        assert logged[0]["dtype"] == "bfloat16" and logged[0]["padded_tokens"] == 0
+        assert share is not None and 0 < share <= 100
+
+
+def test_satlas_predict_cli_serves_on_the_card(cuda, tmp_path):
+    """``predict scene --model satlas`` on CUDA: the published widths from a
+    saved checkpoint, served in bfloat16 through ``TiledInferenceEngine``
+    over a 4-date x 9-band scene (two chip batches of 512^2, the replayed
+    stages in the second)."""
+    from satellite_computervision_tpu_torch import predict
+    from satellite_computervision_tpu_torch.geo import read_geotiff
+    from satellite_computervision_tpu_torch.models import SatlasSwinSegmenter
+    from satellite_computervision_tpu_torch.train.checkpoint import save_checkpoint
+
+    torch.manual_seed(5)
+    save_checkpoint(str(tmp_path), SatlasSwinSegmenter(36, scale=(8160.0,) * 9))
+    scene = np.random.default_rng(5).integers(1, 10000, (900, 1200, 36), dtype=np.uint16)
+    np.save(tmp_path / "scene.npy", scene)
+    out = tmp_path / "pred.tif"
+    predict.main(["scene", "--input", str(tmp_path / "scene.npy"), "--ckpt", str(tmp_path),
+                  "--model", "satlas", "--kernel", "416", "--buffer", "96", "--batch-size", "4",
+                  "--uint8", "--output", str(out)])
+    pred, _ = read_geotiff(str(out))
+    assert pred.shape == (900, 1200, 1) and pred.dtype == np.uint8
 
 
 def _train_model(family: str):
